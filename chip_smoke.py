@@ -12,7 +12,10 @@ and cuDNN, so every f32 product runs in full f32.
 Phases (any failure exits 1 and prints no result line):
 
 1. The card's name and power limit (nvidia-smi); build every kernel
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together) and count each
+   library's tensor-core instructions in its SASS (``cuobjdump -sass``:
+   HGMMA is wgmma, HMMA mma.sync); flash_fwd and flash_bwd must hold
+   HGMMA (their bf16 kernels run on wgmma).
 2. K1, paged GQA decode, against its plain PyTorch version at
    Llama-3.1-8B decode shapes (B 8, S 1024, 8 kv heads, 4 query heads
    each, head_dim 128, page 128): ragged row bounds, dmask holes, an
@@ -61,15 +64,19 @@ Phases (any failure exits 1 and prints no result line):
    the spec-off engine's; an int8-KV spec pass must run K3's int8
    branch.
 7. K4 (flash forward), K5a (flash dQ) and K5b (flash dK/dV) against
-   their plain versions (the backward on the kernel's own o and lse):
-   f32 at S 256 causal and not, Sq 128 < Sk 256 and a ragged S 200
-   (bar 1e-4), then bf16 at the training shapes B 4 x S 2048 x H 16 x
-   D 128 causal (the bf16 bar above, for o and the gradients alike;
-   lse, f32 either way, 1e-4). Times there: each kernel, its plain
-   version (``_plain_bwd`` computes dQ, dK and dV together), SDPA
-   forward and SDPA forward + backward (torch.autograd.grad), and the
-   bound (operations over the bf16 peak: 2, 3 and 4 products of
-   2 * head_dim operations per attended pair).
+   their plain versions (the backward on the kernel's own o and lse),
+   on both routes: f32 (CUDA-core kernels) at S 256 causal and not,
+   Sq 128 < Sk 256 and a ragged S 200 (bar 1e-4); bf16 (K4 and K5b on
+   the tensor cores) at the same four shapes, a head_dim-64 case and
+   the training shapes B 4 x S 2048 x H 16 x D 128 causal (the bf16 bar
+   above, for o and the gradients alike; lse, f32 either way, 1e-4).
+   Every launch must count its route (``.f32`` entries on f32 only).
+   Times at the training shapes: each kernel, its plain version
+   (``_plain_bwd`` computes dQ, dK and dV together), SDPA forward, SDPA
+   backward alone (torch.autograd.grad on a graph kept from one
+   forward) and SDPA forward + backward, and the bound (operations over
+   the bf16 peak: 2, 3 and 4 products of 2 * head_dim operations per
+   attended pair).
 8. The training path at full width: ``LlamaConfig.tpu_1b(max_seq=2048,
    param_dtype=bfloat16, remat=True, loss_chunk=1024)``, all 16 layers,
    random weights from ``--seed``, through ``init_train_state`` and
@@ -77,12 +84,14 @@ Phases (any failure exits 1 and prints no result line):
    fixed batch of 4 x 2048 tokens: a warm-up step, then 4 timed steps.
    Loss and grad_norm must be finite (grad_norm > 0), the last loss
    below the first, ``state.step`` 5, and every step must launch K4
-   32 times (remat reruns each layer's forward) and K5a/K5b 16 times.
+   32 times (remat reruns each layer's forward) and K5a/K5b 16 times,
+   all on the bf16 route (no ``.f32`` launch).
    Prints step time, tokens/s, MFU (``bench.py``'s flops per token
    against the bf16 dense peak) and peak memory.
 9. Training parity: tpu_1b width at depth 2 in f32, 3 steps, the
-   kernels (attn_impl 'auto') against plain attention ('xla') from the
-   same weights (bars in ``phase_train_parity``).
+   kernels (attn_impl 'auto', every launch on the f32 route) against
+   plain attention ('xla') from the same weights (bars in
+   ``phase_train_parity``).
 10. Monolithic ``inference.generate`` on phase 6's model and prompts:
    greedy tokens equal to ``reference_generate``'s and the engine's,
    K4 launched once per layer (the prefill), K1 per decode step.
@@ -930,30 +939,40 @@ def attended_pairs(sq, sk, causal):
 def flash_costs(q, k, causal):
     """(bytes, operations) each kernel needs on these inputs, each input
     read once and each output written once: K4 reads q, k, v and writes
-    o and lse; K5a reads q, k, v, o, dO and lse and writes dQ; K5b reads
-    the same and writes dK and dV. A product costs 2 * head_dim
-    operations per attended pair: K4 does 2 (scores, P @ V), K5a 3
-    (scores, dP, dQ), K5b 4 (scores, dP, dV, dK)."""
+    o and lse; K5a reads q, k, v, o, dO and lse and writes dQ and delta;
+    K5b (bf16) reads q, k, v, dO, lse and delta and writes dK and dV. A
+    product costs 2 * head_dim operations per attended pair: K4 does 2
+    (scores, P @ V), K5a 3 (scores, dP, dQ), K5b 4 (scores, dP, dV,
+    dK)."""
     b, sq, h, d = q.shape
     qb, kb = q.numel() * q.element_size(), k.numel() * k.element_size()
     lse = b * h * sq * 4
     prod = 2 * d * b * h * attended_pairs(sq, k.shape[1], causal)
     return {'flash_fwd': (2 * qb + 2 * kb + lse, 2 * prod),
-            'flash_dq': (4 * qb + 2 * kb + lse, 3 * prod),
-            'flash_dkv': (3 * qb + 4 * kb + lse, 4 * prod)}
+            'flash_dq': (4 * qb + 2 * kb + 2 * lse, 3 * prod),
+            'flash_dkv': (2 * qb + 4 * kb + 2 * lse, 4 * prod)}
 
 
 def flash_check(torch, fa, args, causal, f32):
     """K4 against ``_plain_fwd``, and K5a/K5b against ``_plain_bwd`` on
-    the kernel's own o and lse; returns the max errors (o, lse, dq, dk,
-    dv). lse is f32 either way and takes the f32 bar."""
+    the kernel's own o and lse; every launch must count its route (the
+    ``.f32`` entries on f32 only). Returns the max errors (o, lse, dq,
+    dk, dv). lse is f32 either way and takes the f32 bar."""
+    from skypilot_tpu_torch.ops import _build
     q, k, v, do = args
     kw = dict(causal=causal, scale=q.shape[-1]**-0.5)
+    _build.reset_launches()
     o, lse = fa.flash_forward(q, k, v, **kw)
     got = (o, lse) + fa.flash_backward(q, k, v, o, lse, do, **kw)
+    launches = dict(_build.LAUNCHES)
     want = fa._plain_fwd(q, k, v, **kw) + fa._plain_bwd(q, k, v, o, lse, do,
                                                          **kw)
     torch.cuda.synchronize()
+    names = ('flash_fwd', 'flash_dq', 'flash_dkv')
+    route = {n: 1 for n in names}
+    if f32:
+        route.update({f'{n}.f32': 1 for n in names})
+    check(launches == route, f'launches {launches}, want {route}')
     errs = {}
     for name, g, w in zip(('o', 'lse', 'dq', 'dk', 'dv'), got, want):
         err, ok = compare(g, w, bf16_bar=not f32 and name != 'lse')
@@ -964,22 +983,31 @@ def flash_check(torch, fa, args, causal, f32):
     return errs
 
 
+FLASH_EDGES = ((2, 256, 256, True, 128, 'causal S 256'),
+               (2, 256, 256, False, 128, 'full S 256'),
+               (2, 128, 256, True, 128, 'causal Sq 128 < Sk 256'),
+               (2, 200, 200, True, 128, 'causal ragged S 200'))
+
+
 def phase_flash(torch, dev, seed, report):
-    """K4, K5a and K5b against their plain versions: f32 edge cases at
-    the 1e-4 bar, then the training shapes in bf16 (the bf16 bar), and
-    times there."""
+    """K4, K5a and K5b against their plain versions on both routes: f32
+    edge cases at the 1e-4 bar, the same in bf16 plus a head_dim-64 case
+    at the bf16 bar, then the training shapes in bf16, and times
+    there."""
     from skypilot_tpu_torch.ops import flash_attention as fa
-    f32_err = 0.0
-    for b, sq, sk, causal, tag in ((2, 256, 256, True, 'causal S 256'),
-                                   (2, 256, 256, False, 'full S 256'),
-                                   (2, 128, 256, True, 'causal Sq 128 < Sk '
-                                    '256'),
-                                   (2, 200, 200, True, 'causal ragged S 200')):
-        errs = flash_check(torch, fa, flash_inputs(
-            torch, dev, b, sq, sk, 16, torch.float32, seed), causal, True)
-        f32_err = max(f32_err, *errs.values())
-        log(f'K4/K5 f32 {tag}: max_abs_err ' +
-            ', '.join(f'{n} {e:.3g}' for n, e in errs.items()))
+    edge_err = {'f32': 0.0, 'bf16': 0.0}
+    for kind, dtype, extra in (
+            ('f32', torch.float32, ()),
+            ('bf16', torch.bfloat16,
+             ((2, 256, 256, True, 64, 'causal S 256 head_dim 64'),))):
+        for b, sq, sk, causal, d, tag in FLASH_EDGES + extra:
+            errs = flash_check(torch, fa, flash_inputs(
+                torch, dev, b, sq, sk, 16, dtype, seed, d), causal,
+                kind == 'f32')
+            edge_err[kind] = max(edge_err[kind], *(
+                e for n, e in errs.items() if kind == 'f32' or n != 'lse'))
+            log(f'K4/K5 {kind} {tag}: max_abs_err ' +
+                ', '.join(f'{n} {e:.3g}' for n, e in errs.items()))
     args = flash_inputs(torch, dev, 4, 2048, 2048, 16, torch.bfloat16, seed)
     errs = flash_check(torch, fa, args, True, False)
     log('K4/K5 bf16 B 4 x S 2048 x H 16 x D 128 causal: max_abs_err ' +
@@ -990,59 +1018,76 @@ def phase_flash(torch, dev, seed, report):
     costs = flash_costs(q, k, True)
     fwd_sets = copies_of((q, k, v), costs['flash_fwd'][0])
     bwd_sets = copies_of((q, k, v, o, lse, do), costs['flash_dq'][0])
+    # K5b reads the delta K5a writes for the same inputs.
+    dkv_sets = [a + (fa._flash_dq_cuda(*a, **kw)[1],) for a in bwd_sets]
     ms = {
         'flash_fwd': time_ms(lambda *a: fa._flash_fwd_cuda(*a, **kw),
-                             fwd_sets, iters=10),
+                             fwd_sets, iters=20),
         'flash_dq': time_ms(lambda *a: fa._flash_dq_cuda(*a, **kw),
                             bwd_sets, iters=10),
         'flash_dkv': time_ms(lambda *a: fa._flash_dkv_cuda(*a, **kw),
-                             bwd_sets, iters=10)}
+                             dkv_sets, iters=20)}
     plain_fwd = time_ms(lambda *a: fa._plain_fwd(*a, **kw), fwd_sets,
                         iters=5)
     plain_bwd = time_ms(lambda *a: fa._plain_bwd(*a, **kw), bwd_sets,
                         iters=5)
-    lib_fwd, lib_fwd_bwd = flash_library_ms(torch, args)
-    del fwd_sets, bwd_sets
+    lib = flash_library_ms(torch, args)
+    del fwd_sets, bwd_sets, dkv_sets
     for name, source, replaces in FLASH_ENTRIES:
         bound_ms, bound_by = bound(*costs[name], 'bfloat16')
         fwd = name == 'flash_fwd'
-        report.append({
+        entry = {
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces,
+            'products': 'f32 CUDA cores' if name == 'flash_dq' else
+            'bf16 wgmma (f32 route: f32 CUDA cores)',
             'max_abs_err': errs['o'] if fwd else errs['dq'] if
             name == 'flash_dq' else max(errs['dk'], errs['dv']),
-            'f32_max_abs_err': f32_err, 'ms': ms[name],
-            # The plain backward and the library call compute dQ, dK and
-            # dV together: both K5 entries carry the pair's time.
+            'f32_max_abs_err': edge_err['f32'],
+            'bf16_edge_max_abs_err': edge_err['bf16'], 'ms': ms[name],
+            # The plain backward and the library's backward compute dQ,
+            # dK and dV together: both K5 entries carry the pair's time.
             'plain_ms': plain_fwd if fwd else plain_bwd,
             'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': lib_fwd if fwd else lib_fwd_bwd,
+            'library_ms': lib['fwd'] if fwd else lib['bwd'],
             'plain_and_library_cover': 'K4' if fwd else 'K5a + K5b '
-            '(library: SDPA forward + backward)'})
+            '(library: SDPA backward alone)'}
+        if not fwd:
+            entry['library_fwd_bwd_ms'] = lib['fwd_bwd']
+        report.append(entry)
+        note = '' if fwd else (f' (SDPA backward alone, for the K5 pair; '
+                               f'fwd + bwd {lib["fwd_bwd"]:.4f})')
         log(f'{name} times (ms): kernel {ms[name]:.4f}, bound '
             f'{bound_ms:.4f} ({bound_by}); plain '
-            f'{plain_fwd if fwd else plain_bwd:.4f}, library '
-            f'{lib_fwd if fwd else lib_fwd_bwd:.4f}'
-            f'{"" if fwd else " (for the K5 pair)"}')
+            f'{entry["plain_ms"]:.4f}, library {entry["library_ms"]:.4f}'
+            f'{note}')
+    log(f'K5 pair (K5a + K5b) {ms["flash_dq"] + ms["flash_dkv"]:.4f} ms '
+        f'against SDPA backward alone {lib["bwd"]:.4f} ms')
 
 
 def flash_library_ms(torch, args):
-    """SDPA forward, and SDPA forward + backward through
-    torch.autograd.grad, on the same inputs in the library's [B, H, S,
-    D] layout (laid out before the timing); causal."""
+    """SDPA forward, SDPA backward alone (torch.autograd.grad on a graph
+    kept from one forward per input copy, retain_graph) and SDPA forward
+    + backward, on the same inputs in the library's [B, H, S, D] layout
+    (laid out before the timing); causal."""
     import torch.nn.functional as F
     q, k, v, do = (x.transpose(1, 2).contiguous() for x in args)
     fwd = time_ms(lambda a, b, c: F.scaled_dot_product_attention(
         a, b, c, is_causal=True), copies_of((q, k, v), 3 * q.numel() * 2),
-        iters=10)
+        iters=20)
 
     def fwd_bwd(a, b, c, g):
         out = F.scaled_dot_product_attention(a, b, c, is_causal=True)
         torch.autograd.grad(out, (a, b, c), g)
 
     leaves = tuple(x.requires_grad_(True) for x in (q, k, v)) + (do,)
-    both = time_ms(fwd_bwd, copies_of(leaves, 4 * q.numel() * 2), iters=10)
-    return fwd, both
+    sets = copies_of(leaves, 4 * q.numel() * 2)
+    both = time_ms(fwd_bwd, sets, iters=10)
+    graphs = [(F.scaled_dot_product_attention(a, b, c, is_causal=True),
+               (a, b, c), g) for a, b, c, g in sets]
+    bwd = time_ms(lambda out, xs, g: torch.autograd.grad(
+        out, xs, g, retain_graph=True), graphs, iters=20)
+    return {'fwd': fwd, 'bwd': bwd, 'fwd_bwd': both}
 
 
 # ------------------------------------------------------ training phases
@@ -1086,7 +1131,8 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
     log(f'train: warm-up step {time.perf_counter() - t0:.3f} s')
     metrics = [(m['loss'].item(), m['grad_norm'].item())]
     per_step, times = [], []
-    names = ('flash_fwd', 'flash_dq', 'flash_dkv')
+    names = ('flash_fwd', 'flash_dq', 'flash_dkv', 'flash_fwd.f32',
+             'flash_dq.f32', 'flash_dkv.f32')
     _build.reset_launches()                      # counts start here ...
     for _ in range(steps):
         before = {n: _build.LAUNCHES[n] for n in names}
@@ -1117,9 +1163,11 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
           f'loss did not fall on the repeated batch: {metrics}')
     check(state.step == steps + 1, f'state.step is {state.step}')
     want = {'flash_fwd': 2 * cfg.n_layers, 'flash_dq': cfg.n_layers,
-            'flash_dkv': cfg.n_layers}
+            'flash_dkv': cfg.n_layers, 'flash_fwd.f32': 0,
+            'flash_dq.f32': 0, 'flash_dkv.f32': 0}
     check(all(p == want for p in per_step),
-          f'launches per step {per_step}, want {want} (remat reruns K4)')
+          f'launches per step {per_step}, want {want} (remat reruns K4; '
+          'bf16 takes no f32 route)')
     if profile_dir:
         busy = profile_run(torch, lambda: step_fn(state, batch),
                            profile_dir, 'train')
@@ -1129,6 +1177,30 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
     del state, opt, step_fn
     torch.cuda.empty_cache()
     return launches
+
+
+def sass_counts():
+    """Tensor-core instructions in each kernel library's SASS:
+    HGMMA (wgmma) and HMMA (mma.sync). flash_fwd and flash_bwd must
+    hold HGMMA: their bf16 kernels run on wgmma."""
+    from skypilot_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    if not os.access(tool, os.X_OK):
+        log(f'tensor-core instructions in SASS: not checked ({tool} '
+            'missing)')
+        return
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, '-sass', _build._lib_path(name)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout.splitlines()
+        counts[name] = {op: sum(op in line for line in sass)
+                        for op in ('HGMMA', 'HMMA')}
+        log(f'  {name}: {counts[name]["HGMMA"]} HGMMA, '
+            f'{counts[name]["HMMA"]} HMMA')
+    check(counts['flash_fwd']['HGMMA'] > 0 and
+          counts['flash_bwd']['HGMMA'] > 0,
+          f'no wgmma in the flash kernels\' SASS: {counts}')
 
 
 def flat_params(tree, prefix=''):
@@ -1211,6 +1283,9 @@ def phase_train_parity(torch, dev, seed):
     check(k_l.get('flash_fwd', 0) == 3 * 2 * 2 and
           k_l.get('flash_dq', 0) == 3 * 2 and k_l.get('flash_dkv', 0) == 6,
           f'the kernel run launched {k_l}')
+    check(all(k_l.get(f'{n}.f32', 0) == k_l[n]
+              for n in ('flash_fwd', 'flash_dq', 'flash_dkv')),
+          f'an f32 flash launch missed the f32 route: {k_l}')
     check(not x_l, f'the plain run launched {x_l}')
     del runs
     torch.cuda.empty_cache()
@@ -1300,6 +1375,7 @@ def main(argv=None):
                     log(f'  {name}: {line.strip()}')
 
     phase('1 build', build)
+    phase('1 tensor cores in SASS', sass_counts)
     phase('2 K1 vs plain', phase_decode, torch, dev, args.seed, report)
     phase('3+4 K2 vs plain', phase_chunk, torch, dev, args.seed, report)
     phase('3b+4 K3 vs plain', phase_verify, torch, dev, args.seed, report)

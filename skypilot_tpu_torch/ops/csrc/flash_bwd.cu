@@ -5,33 +5,50 @@
 // _dq_kernel (flash_dq here) and ::_dkv_kernel (flash_dkv), both driven
 // by _flash_bwd_pallas. Inputs are the forward's q/k/v/o [B, S, H, D]
 // (f32 or bf16, GQA repeated out), its lse [B, H, Sq] f32 and the
-// output gradient dO [B, Sq, H, D] in the same type. Both kernels
-// recompute P = exp(q.k * scale - lse) tile by tile and
-// delta = rowsum(dO * O) in their own bodies (no S x S matrix and no
-// extra pass ever touches device memory), and form
-// dS = P * (dP - delta) * scale with dP = dO . V^T. Then
+// output gradient dO [B, Sq, H, D] in the same type. Both recompute
+// P = exp(q.k * scale - lse) tile by tile (no S x S matrix ever touches
+// device memory) and form dS = P * (dP - delta) * scale with
+// dP = dO . V^T and delta = rowsum(dO * O). Then
 //   flash_dq:  dQ = sum over key tiles of dS . K           (3 products)
 //   flash_dkv: dV = sum over query tiles of P^T . dO,
 //              dK = sum over query tiles of dS^T . Q        (4 products)
-// Each block owns its output tile and loops over the other axis, so
-// there are no atomics and runs are deterministic. Causal masking is
-// bottom-right aligned (query i sees key j when i + Sk - Sq >= j), and
-// both loops skip the tiles past the diagonal.
+// flash_dq runs first: it computes delta while staging each query tile
+// and also writes it to a [B, H, Sq] f32 output, which the bf16
+// flash_dkv reads instead of re-reading O for every key tile. Each block
+// owns its output tile and loops over the other axis, so there are no
+// atomics and runs are deterministic. Causal masking is bottom-right
+// aligned (query i sees key j when i + Sk - Sq >= j), and both loops skip
+// the tiles past the diagonal.
 //
 // What bounds them on an H100: at the training shapes (B 4, H 16,
 // S 2048, D 128, bf16, causal) the products are 103 GFLOP (dq) and
 // 137 GFLOP (dkv) per call, against ~60 MB of inputs — the bf16
-// tensor-core rate would bound both (~0.1 ms). Like the forward, this
-// first version runs the products in f32 on the CUDA cores, so the f32
-// FMA rate bounds it; wgmma is later work. The same 16 x 16 thread grid
-// and float4 tiles as the forward (flash_common.cuh) keep several FMAs
-// per shared-memory load. flash_dq stages Q and dO once per 64-query
-// tile and 32-key tiles of K and V (111 KB, two blocks per SM);
-// flash_dkv stages K and V once per 64-key tile and 32-query tiles of Q
-// and dO, with P and dS kept in shared memory for the two transposed
+// tensor-core rate bounds both (~0.1 ms).
+//
+// flash_dkv on bf16 (flash_dkv_tc_kernel) runs its four products on the
+// tensor cores (flash_tc.cuh), FlashAttention-2's key-stationary loop:
+// one block of two warpgroups owns 128 keys of dK and dV (64 per
+// warpgroup, K and V loaded once) and walks 64-query tiles from the
+// causal start, Q, dO, lse and delta double-buffered with cp.async. Per
+// tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands from shared
+// memory, K-major), P^T and dS^T / scale on the fragments in registers,
+// then dV += P^T dO and dK += dS^T Q (wgmma, P^T and dS^T as bf16
+// register A operands, dO and Q through the transpose bit); dK takes the
+// scale once at the end. P and dS are rounded to bf16 for those two
+// products, as flash kernels on tensor cores do.
+//
+// flash_dq (both types) and flash_dkv on f32 run their products in f32
+// on the CUDA cores — the f32 route holds a 1e-4 bar that TF32 products
+// would not. The same 16 x 16 thread grid and float4 tiles as the
+// forward (flash_common.cuh) keep several FMAs per shared-memory load.
+// flash_dq stages Q and dO once per 64-query tile and 32-key tiles of K
+// and V (111 KB, two blocks per SM); the f32 flash_dkv stages K and V
+// once per 64-key tile and 32-query tiles of Q and dO, recomputes delta
+// from O, and keeps P and dS in shared memory for the two transposed
 // products (119 KB, one block per SM).
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -49,7 +66,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ o,
     const float* __restrict__ lse, const T* __restrict__ dO,
-    T* __restrict__ dq, int Sq, int Sk, int H, float scale, int causal) {
+    T* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int H,
+    float scale, int causal) {
   constexpr int ld = D + 4;
   constexpr int ldp = kDqBk + 4;
   constexpr int RM = kDqBq / 16;
@@ -105,6 +123,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     __syncthreads();  // dS visible
     acc_nn<D, RM, kDqBk>(ds_sm, ldp, k_sm, ty, tx, acc);
   }
+
+  // delta for flash_dkv, written after the loop so that the loop's code
+  // stays as it was (visible: the loop ran at least once, through its
+  // barriers, since kv_end >= 1).
+  if (threadIdx.x < kDqBq && q0 + threadIdx.x < Sq)
+    delta[((size_t)b * H + h) * Sq + q0 + threadIdx.x] =
+        delta_sm[threadIdx.x];
 
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -196,9 +221,184 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------- bf16 route
+
+constexpr int kTcKvBk = 128;  // keys per block: two warpgroups of 64
+constexpr int kTcKvBq = 64;   // query rows per tile
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dkv_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ lse,
+    const float* __restrict__ delta, const __nv_bfloat16* __restrict__ dO,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
+    int Sk, int H, float scale, int causal) {
+  using namespace flash_tc;
+  constexpr int Dp = padded(D);
+  constexpr int kKvTile = kTcKvBk * Dp * 2;  // bytes of the K or V tile
+  constexpr int kQTile = kTcKvBq * Dp * 2;   // bytes of a Q or dO tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // K, V, Q[0], Q[1], dO[0], dO[1], then f32 lse[2][64], delta[2][64].
+  const uint32_t k_s = smem_u32(smem);
+  const uint32_t v_s = k_s + kKvTile;
+  const uint32_t q_s = k_s + 2 * kKvTile;  // Q[i] at +i, dO[i] at +2 + i
+  float* stats = reinterpret_cast<float*>(smem + 2 * kKvTile + 4 * kQTile);
+  const uint32_t stats_s = smem_u32(stats);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // Low key tiles see the most queries under the causal mask: they come
+  // first in the grid's slowest index.
+  const int k0 = blockIdx.z * kTcKvBk;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  // This thread's first accumulator row (a key) in the block; the
+  // second is +8.
+  const int row_in = wg * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+  const int cq = 2 * (tid & 3);
+  const int offset = Sk - Sq;
+  // The first query row that may see key k0 (row + offset >= k0), down
+  // to its tile; below Sq, since k0 < Sk = Sq + offset.
+  const int q_begin = causal ? max(0, k0 - offset) / kTcKvBq * kTcKvBq : 0;
+  const int n_tiles = (Sq - q_begin + kTcKvBq - 1) / kTcKvBq;
+  const float scale2 = scale * kLog2e;
+
+  // Query tile starting at row q0 (Q, dO, lse, delta) into buffer buf.
+  auto load_queries = [&](int buf, int q0) {
+    load_tile<D, kTcKvBq, kThreads>(q_s + buf * kQTile, q, b, q0, Sq, H, h);
+    load_tile<D, kTcKvBq, kThreads>(q_s + (2 + buf) * kQTile, dO, b, q0, Sq,
+                                    H, h);
+    if (tid < 2 * kTcKvBq) {
+      const int r = tid & (kTcKvBq - 1);
+      const bool is_delta = tid >= kTcKvBq;
+      const bool ok = q0 + r < Sq;
+      const float* src = (is_delta ? delta : lse) +
+                         ((size_t)b * H + h) * Sq + (ok ? q0 + r : 0);
+      cp_async4(stats_s + 4 * ((is_delta ? 2 : 0) * kTcKvBq +
+                               buf * kTcKvBq + r),
+                src, ok);
+    }
+  };
+
+  zero_padding<D, kTcKvBk, kThreads>(smem);
+  zero_padding<D, kTcKvBk, kThreads>(smem + kKvTile);
+  for (int t = 0; t < 4; ++t)
+    zero_padding<D, kTcKvBq, kThreads>(smem + 2 * kKvTile + t * kQTile);
+  load_tile<D, kTcKvBk, kThreads>(k_s, k, b, k0, Sk, H, h);
+  load_tile<D, kTcKvBk, kThreads>(v_s, v, b, k0, Sk, H, h);
+  load_queries(0, q_begin);
+  cp_async_commit();
+
+  float acc_dk[Dp / 2], acc_dv[Dp / 2];
+#pragma unroll
+  for (int i = 0; i < Dp / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int q0 = q_begin + t * kTcKvBq;
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_queries(buf ^ 1, q0 + kTcKvBq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and K, V) landed for every warpgroup
+    const uint32_t qt = q_s + buf * kQTile;
+    const uint32_t dot = q_s + (2 + buf) * kQTile;
+
+    float s[kTcKvBq / 2], dp[kTcKvBq / 2];
+#pragma unroll
+    for (int i = 0; i < kTcKvBq / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss(s, desc_kmajor<kTcKvBk>(k_s + wg * 64 * 128, ks),
+               desc_kmajor<kTcKvBq>(qt, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss(dp, desc_kmajor<kTcKvBk>(v_s + wg * 64 * 128, ks),
+               desc_kmajor<kTcKvBq>(dot, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T * scale - lse) and dS^T / scale = P^T * (dP^T -
+    // delta), a query per column; tiles that cross the causal diagonal or
+    // the query end are masked.
+    const float* lse_t = stats + buf * kTcKvBq;
+    const float* delta_t = stats + (2 + buf) * kTcKvBq;
+    const bool edge = q0 + kTcKvBq > Sq ||
+                      (causal && q0 + offset < k0 + kTcKvBk - 1);
+#pragma unroll
+    for (int j = 0; j < kTcKvBq / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + cq + e;
+        const float lse2 = lse_t[c] * kLog2e;
+        const float dl = delta_t[c];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int idx = 4 * j + 2 * i + e;
+          float p = exp2f(fmaf(s[idx], scale2, -lse2));
+          if (edge) {
+            const int key = k0 + row_in + 8 * i;
+            const int row = q0 + c;
+            if (row >= Sq || (causal && key > row + offset)) p = 0.f;
+          }
+          dp[idx] = p * (dp[idx] - dl);
+          s[idx] = p;
+        }
+      }
+
+    uint32_t pa[kTcKvBq / 16][4], da[kTcKvBq / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcKvBq / 16; ++kk) {
+      a_frag(s, kk, pa[kk]);
+      a_frag(dp, kk, da[kk]);
+    }
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKvBq / 16; ++kk)
+      wgmma_rs(acc_dv, pa[kk], desc_mnmajor<kTcKvBq>(dot, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kTcKvBq / 16; ++kk)
+      wgmma_rs(acc_dk, da[kk], desc_mnmajor<kTcKvBq>(qt, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dv);
+    fence_regs(acc_dk);
+    __syncthreads();  // tile t's reads are done before its buffers take
+                      // tile t + 2
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + row_in + 8 * i;
+    if (key >= Sk) continue;
+    const size_t base = row_index(b, key, Sk, H, h, D);
+#pragma unroll
+    for (int j = 0; j < Dp / 8; ++j)
+      if (8 * j < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * j + cq) =
+            __floats2bfloat162_rn(acc_dk[4 * j + 2 * i] * scale,
+                                  acc_dk[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * j + cq) =
+            __floats2bfloat162_rn(acc_dv[4 * j + 2 * i],
+                                  acc_dv[4 * j + 2 * i + 1]);
+      }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *lse, *dO;
-  void *dq, *dk, *dv;
+  void *dq, *delta, *dk, *dv;  // delta: flash_dq's output, flash_dkv's input
   int B, Sq, Sk, H;
   float scale;
   int causal;
@@ -215,8 +415,9 @@ int launch_dq(const Args& a, cudaStream_t st) {
                 static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                 static_cast<const T*>(a.v), static_cast<const T*>(a.o),
                 static_cast<const float*>(a.lse),
-                static_cast<const T*>(a.dO), static_cast<T*>(a.dq), a.Sq,
-                a.Sk, a.H, a.scale, a.causal);
+                static_cast<const T*>(a.dO), static_cast<T*>(a.dq),
+                static_cast<float*>(a.delta), a.Sq, a.Sk, a.H, a.scale,
+                a.causal);
 }
 
 template <typename T, int D>
@@ -234,12 +435,34 @@ int launch_dkv(const Args& a, cudaStream_t st) {
                 static_cast<T*>(a.dv), a.Sq, a.Sk, a.H, a.scale, a.causal);
 }
 
-// which: 0 = flash_dq, 1 = flash_dkv.
+template <int D>
+int launch_dkv_tc(const Args& a, cudaStream_t st) {
+  constexpr int Dp = flash_tc::padded(D);
+  const size_t smem = (size_t)2 * kTcKvBk * Dp * 2 +
+                      (size_t)4 * kTcKvBq * Dp * 2 +
+                      4 * kTcKvBq * sizeof(float) + 1024;
+  using bf16 = __nv_bfloat16;
+  return launch(flash_dkv_tc_kernel<D>,
+                dim3(a.H, a.B, (a.Sk + kTcKvBk - 1) / kTcKvBk), smem, st,
+                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                static_cast<const bf16*>(a.v),
+                static_cast<const float*>(a.lse),
+                static_cast<const float*>(a.delta),
+                static_cast<const bf16*>(a.dO), static_cast<bf16*>(a.dk),
+                static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.scale, a.causal);
+}
+
+// which: 0 = flash_dq, 1 = flash_dkv. bf16 flash_dkv takes the
+// tensor-core kernel; everything else the CUDA-core one.
 template <typename T>
 int dispatch_d(int which, int D, const Args& a, cudaStream_t st) {
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    return which ? launch_dkv<T, kD>(a, st) : launch_dq<T, kD>(a, st);
+    if (which == 0) return launch_dq<T, kD>(a, st);
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return launch_dkv_tc<kD>(a, st);
+    else
+      return launch_dkv<T, kD>(a, st);
   });
 }
 
@@ -256,22 +479,26 @@ int dispatch(int which, const Args& a, int D, int dtype, void* stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dO and the gradients).
-// head_dim D must be a multiple of 16 up to 128. Each returns
-// cudaGetLastError() after its launch.
+// head_dim D must be a multiple of 16 up to 128. flash_dq also writes
+// delta = rowsum(dO * O) [B, H, Sq] f32; flash_dkv reads it on bf16 (the
+// f32 kernel recomputes it from O). Each returns cudaGetLastError()
+// after its launch.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* o, const void* lse, const void* dO,
-                        void* dq, int B, int Sq, int Sk, int H, int D,
-                        float scale, int causal, int dtype, void* stream) {
-  Args a{q, k, v, o, lse, dO, dq, nullptr, nullptr, B, Sq, Sk, H, scale,
-         causal};
+                        void* dq, void* delta, int B, int Sq, int Sk, int H,
+                        int D, float scale, int causal, int dtype,
+                        void* stream) {
+  Args a{q, k, v, o, lse, dO, dq, delta, nullptr, nullptr, B, Sq, Sk, H,
+         scale, causal};
   return dispatch(0, a, D, dtype, stream);
 }
 
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* o, const void* lse, const void* dO,
-                         void* dk, void* dv, int B, int Sq, int Sk, int H,
-                         int D, float scale, int causal, int dtype,
-                         void* stream) {
-  Args a{q, k, v, o, lse, dO, nullptr, dk, dv, B, Sq, Sk, H, scale, causal};
+                         const void* delta, void* dk, void* dv, int B,
+                         int Sq, int Sk, int H, int D, float scale,
+                         int causal, int dtype, void* stream) {
+  Args a{q, k, v, o, lse, dO, nullptr, const_cast<void*>(delta), dk, dv, B,
+         Sq, Sk, H, scale, causal};
   return dispatch(1, a, D, dtype, stream);
 }

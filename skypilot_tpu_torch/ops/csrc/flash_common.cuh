@@ -1,5 +1,6 @@
-// Tiles and products shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu).
+// CUDA-core tiles and products of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu): the f32 route of K4 and K5b, and K5a on
+// both types. The bf16 tensor-core route's tile layer is flash_tc.cuh.
 //
 // Layout: q/k/v/o and their gradients are [B, S, H, D], lse and the
 // row sums delta are [B, H, S] f32. A block of kThreads = 256 threads is

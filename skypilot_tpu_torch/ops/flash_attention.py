@@ -15,7 +15,15 @@ hand-written CUDA kernels:
 ``flash_attention`` is differentiable through ``_Flash``, the
 counterpart of the reference's ``custom_vjp``: it saves q, k, v, o and
 the log-sum-exp, and its backward recomputes the probabilities from
-them. ``_plain_fwd``/``_plain_bwd`` (mirroring the reference's
+them. K5a runs first and also writes delta = rowsum(dO * O), which K5b
+reads. The flash kernels take one of two routes by input dtype, never
+by failure: bf16 runs K4 and K5b on the tensor cores (``wgmma``,
+``csrc/flash_tc.cuh``; P and dS rounded to bf16 for the second
+products), f32 keeps full-f32 products on the CUDA cores (K5a is a
+CUDA-core kernel on both). A f32 launch also counts under
+``<kernel>.f32`` in ``_build.LAUNCHES``.
+
+``_plain_fwd``/``_plain_bwd`` (mirroring the reference's
 ``_xla_fwd``/``_xla_bwd``) are the kernels' plain versions;
 ``chunk_attention_reference`` is K2's, ``verify_attention_reference``
 K3's, and ``reference_attention`` is plain causal attention. Every
@@ -45,7 +53,8 @@ VERIFY_KERNEL = 'verify_attention'
 # kernel block holds: 20 at Llama-3.1-8B with spec_k 4.
 VERIFY_MAX_ROWS = 64
 # head_dim values the flash kernels are built for: multiples of 16 up to
-# 128 (each thread of a block owns head_dim / 16 output columns).
+# 128 (a wgmma k-step is 16 columns; the CUDA-core kernels give each
+# thread head_dim / 16 output columns).
 FLASH_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
@@ -153,6 +162,12 @@ def _stream(t):
         return torch.cuda.current_stream().cuda_stream
 
 
+def _count(name, dtype):
+    _build.LAUNCHES[name] += 1
+    if dtype == torch.float32:
+        _build.LAUNCHES[name + '.f32'] += 1
+
+
 def _flash_fwd_cuda(q, k, v, causal, scale):
     _check_flash_args(q, k, v)
     b, sq, h, d = q.shape
@@ -167,42 +182,53 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
                 int(causal), 1 if q.dtype == torch.bfloat16 else 0,
                 _stream(q))
     _build.check(status, FWD_KERNEL)
-    _build.LAUNCHES[FWD_KERNEL] += 1
+    _count(FWD_KERNEL, q.dtype)
     return o, lse
 
 
-def _bwd_call(name, q, k, v, o, lse, do, outs, causal, scale):
-    """Launch ``name`` (flash_dq or flash_dkv) of csrc/flash_bwd.cu
-    writing ``outs``."""
+def _bwd_call(name, q, k, v, o, lse, do, rest, causal, scale):
+    """Launch ``name`` (flash_dq or flash_dkv) of csrc/flash_bwd.cu;
+    ``rest`` are the tensors after dO in its C signature (flash_dq: dq,
+    delta; flash_dkv: delta, dk, dv)."""
     _check_flash_args(q, k, v, o, lse, do)
     b, sq, h, d = q.shape
     fn = getattr(_build.load('flash_bwd'), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * (6 + len(outs)) + [I] * 5 + [ctypes.c_float, I, I,
+    fn.argtypes = [P] * (6 + len(rest)) + [I] * 5 + [ctypes.c_float, I, I,
                                                      P]
     fn.restype = I
-    status = fn(*(x.data_ptr() for x in (q, k, v, o, lse, do, *outs)), b, sq,
+    status = fn(*(x.data_ptr() for x in (q, k, v, o, lse, do, *rest)), b, sq,
                 k.shape[1], h, d, scale, int(causal),
                 1 if q.dtype == torch.bfloat16 else 0, _stream(q))
     _build.check(status, name)
-    _build.LAUNCHES[name] += 1
+    _count(name, q.dtype)
 
 
 def _flash_dq_cuda(q, k, v, o, lse, do, causal, scale):
+    """K5a: (dq, delta [B, H, Sq] f32 = rowsum(dO * O))."""
     dq = torch.empty_like(q)
-    _bwd_call(DQ_KERNEL, q, k, v, o, lse, do, (dq,), causal, scale)
-    return dq
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    _bwd_call(DQ_KERNEL, q, k, v, o, lse, do, (dq, delta), causal, scale)
+    return dq, delta
 
 
-def _flash_dkv_cuda(q, k, v, o, lse, do, causal, scale):
+def _flash_dkv_cuda(q, k, v, o, lse, do, delta, causal, scale):
+    """K5b: (dk, dv). The bf16 kernel reads K5a's ``delta``; the f32 one
+    recomputes it from o."""
+    if delta.shape != lse.shape or delta.dtype != torch.float32 or \
+            delta.device != q.device or not delta.is_contiguous():
+        raise ValueError('delta must be contiguous f32 [B, H, Sq] on q\'s '
+                         'device')
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_call(DKV_KERNEL, q, k, v, o, lse, do, (dk, dv), causal, scale)
+    _bwd_call(DKV_KERNEL, q, k, v, o, lse, do, (delta, dk, dv), causal,
+              scale)
     return dk, dv
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
-    dq = _flash_dq_cuda(q, k, v, o, lse, do, causal, scale)
-    return (dq,) + _flash_dkv_cuda(q, k, v, o, lse, do, causal, scale)
+    dq, delta = _flash_dq_cuda(q, k, v, o, lse, do, causal, scale)
+    return (dq,) + _flash_dkv_cuda(q, k, v, o, lse, do, delta, causal,
+                                   scale)
 
 
 def flash_forward(q, k, v, *, causal, scale):

@@ -9,7 +9,9 @@ within 2e-5, causal and not, and with 128 queries against 256 keys;
 dQ/dK/dV within 2e-4 on the same o and lse. ``flash_attention``'s
 autograd (GQA repeated at the API) is held against ``jax.grad`` of the
 JAX ``flash_attention`` within 2e-4. The kernels themselves run on the
-card only (tests/test_torch_kernels_gpu.py)."""
+card only (tests/test_torch_kernels_gpu.py); the bf16 tensor-core
+route's rounding (P and dS to bf16 before the second products) is
+rehearsed here in f32 arithmetic against the bf16 bar."""
 import importlib
 
 import jax
@@ -27,6 +29,7 @@ torch.set_num_threads(2)
 
 ATOL_FWD = 2e-5
 ATOL_BWD = 2e-4
+LOG2E = 1.4426950408889634
 
 
 def _qkv(b, sq, sk, h, hkv, d, seed):
@@ -139,3 +142,75 @@ def test_attention_dispatch():
                                    atol=ATOL_FWD, rtol=0)
     with pytest.raises(NotImplementedError, match='multi-GPU'):
         tllama._attention(q, k, v, tllama.LlamaConfig.tiny(attn_impl='ring'))
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_route(q, k, v, do, causal, scale, block=128):
+    """The bf16 K4 and K5b (csrc/flash_fwd.cu, flash_bwd.cu) in f32
+    arithmetic on bf16 inputs: K4's online softmax over 128-key tiles in
+    log2 units, P rounded to bf16 before P V while l sums the f32 P;
+    K5b's P and dS / scale rounded to bf16 before dV and dK, with delta
+    from K4's (bf16) o. Returns (o, lse, dk, dv) as the kernels do."""
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum('bqhd,bkhd->bhqk', qf, kf)
+    allowed = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        allowed = (torch.arange(sq)[:, None] + sk - sq >=
+                   torch.arange(sk)[None, :])
+    s2 = torch.where(allowed, s * (scale * LOG2E), -torch.inf)
+    m = torch.full(s.shape[:-1], -torch.inf)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(s.shape[:-1] + (q.shape[-1],))
+    for k0 in range(0, sk, block):
+        t = s2[..., k0:k0 + block]
+        m_new = torch.maximum(m, t.amax(-1))
+        m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+        corr = torch.exp2(m - m_use)
+        p = torch.exp2(t - m_use[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            'bhqk,bkhd->bhqd', _bf16(p), vf[:, k0:k0 + block])
+        m = m_new
+    o = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    lse = m * np.log(2.0) + torch.log(l)
+    p = torch.where(allowed, torch.exp(s * scale - lse[..., None]), 0.0)
+    dp = torch.einsum('bqhd,bkhd->bhqk', dof, vf)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dv = torch.einsum('bhqk,bqhd->bkhd', _bf16(p), dof)
+    dk = torch.einsum('bhqk,bqhd->bkhd', _bf16(ds), qf) * scale
+    return o, lse, dk.to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize('b,sq,sk,h,d,causal', [
+    (2, 200, 200, 2, 64, True),
+    (1, 256, 256, 2, 128, False),
+    (1, 128, 256, 2, 128, True),
+    (1, 2048, 2048, 1, 128, True),
+], ids=['ragged-d64', 'full', 'sq128-sk256', 's2048'])
+def test_tensor_core_rounding_within_the_bf16_bar(b, sq, sk, h, d, causal):
+    """The bf16 route's extra rounding stays within the bar its kernels
+    are held to on the card, 1e-2 + 2^-7 |plain| element-wise against
+    ``_plain_fwd``/``_plain_bwd`` (lse within 1e-4), on bf16 inputs
+    made from a seed; the backward's plain version runs on the route's
+    own o and lse, as chip_smoke.py's phase 7 does."""
+    q, k, v = _qkv(b, sq, sk, h, h, d, seed=sq + d)
+    do = np.random.default_rng(sk).standard_normal(q.shape).astype(
+        np.float32)
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
+                   for x in (q, k, v, do))
+    scale = d**-0.5
+    o, lse, dk, dv = _tensor_core_route(q, k, v, do, causal, scale)
+    want_o, want_lse = tfa._plain_fwd(q, k, v, causal=causal, scale=scale)
+    _, want_dk, want_dv = tfa._plain_bwd(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-4,
+                               rtol=0)
+    for got, want in ((o, want_o), (dk, want_dk), (dv, want_dv)):
+        err = (got.float() - want.float()).abs()
+        bar = 1e-2 + 2**-7 * want.float().abs()
+        assert bool((err <= bar).all()), (err - bar).max().item()

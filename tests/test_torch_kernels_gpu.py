@@ -11,13 +11,16 @@ prefill) at the engine's chunk shapes and K3 (spec-decode verify) at
 the 8B verify shapes and its edges, NaN planted wherever a kernel
 may not read; K4 (flash forward: o and lse) and K5a/K5b (flash dQ and
 dK/dV) causal and not, with Sq < Sk, a ragged S and every head_dim
-they take. Bars, element-wise: |kernel - plain| <= 1e-4 in f32;
-in bf16 and int8, <= 1e-2 + 2^-7 |plain| (the TPU kernel's 1e-2 plus
-one bf16 step of the value: the plain version rounds probabilities to
-bf16 before P @ V, the kernel keeps them in f32; for the flash kernels
-both keep f32 inside and round once at the end, so a step is the most
-they can differ by). int8 scales keep the dequantized values within
-+-1. TF32 is off: the plain versions' f32 products run in full f32.
+they take, on both routes (f32: CUDA cores; bf16: tensor cores for K4
+and K5b), and the route and delta K5a hands to K5b. Bars, element-wise:
+|kernel - plain| <= 1e-4 in f32; in bf16 and int8, <= 1e-2 + 2^-7
+|plain| (the TPU kernel's 1e-2 plus one bf16 step of the value: the
+plain versions keep f32 inside and round once at the end, while a
+kernel may round at another place — K1-K3 keep probabilities in f32
+where the chunk and verify plain versions round them, the bf16 K4 and
+K5b round P and dS to bf16 for their second products). int8 scales
+keep the dequantized values within +-1. TF32 is off: the plain
+versions' f32 products run in full f32.
 """
 import pytest
 import torch
@@ -205,6 +208,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
             kc, kc, torch.zeros((1,), dtype=torch.int32, device=cuda))
 
 
+def _flash_inputs(dev, b, sq, sk, h, d, dt, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+            for s in (sq, sk, sk, sq)]                     # q, k, v, dO
+
+
+def _flash_launches(f32):
+    """One K4, K5a and K5b launch, on the f32 route or the bf16 one."""
+    want = {tfa.FWD_KERNEL: 1, tfa.DQ_KERNEL: 1, tfa.DKV_KERNEL: 1}
+    if f32:
+        want.update({f'{name}.f32': 1 for name in list(want)})
+    return want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('b,sq,sk,h,d,dtype,causal', [
     (2, 256, 256, 4, 128, 'f32', True),
@@ -215,24 +232,29 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     (2, 40, 40, 4, 16, 'f32', True),          # tiny()'s head_dim
     (1, 70, 70, 2, 96, 'bf16', True),
     (1, 512, 512, 4, 128, 'bf16', True),
+    (2, 256, 256, 4, 128, 'bf16', True),
+    (2, 256, 256, 4, 128, 'bf16', False),
+    (1, 128, 256, 4, 128, 'bf16', True),
+    (2, 200, 200, 3, 128, 'bf16', True),
+    (2, 200, 200, 3, 64, 'bf16', True),
+    (2, 40, 40, 4, 16, 'bf16', True),
+    (1, 130, 190, 2, 80, 'bf16', False),      # two column chunks, padded
+    (4, 2048, 2048, 16, 128, 'bf16', True),   # the training shapes
 ], ids=['causal', 'full', 'sq<sk', 'ragged-d64', 'd32', 'd16', 'd96-bf16',
-        'bf16'])
+        'bf16', 'bf16-causal', 'bf16-full', 'bf16-sq<sk', 'bf16-ragged',
+        'bf16-ragged-d64', 'bf16-d16', 'bf16-d80', 'bf16-train'])
 def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal):
-    gen = torch.Generator(device=cuda).manual_seed(sq + d)
     dt = torch.float32 if dtype == 'f32' else torch.bfloat16
-    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dt)
-    k = torch.randn((b, sk, h, d), generator=gen, device=cuda).to(dt)
-    v = torch.randn((b, sk, h, d), generator=gen, device=cuda).to(dt)
-    do = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dt)
+    q, k, v, do = _flash_inputs(cuda, b, sq, sk, h, d, dt, sq + d)
     kw = dict(causal=causal, scale=d**-0.5)
     _build.reset_launches()
     o, lse = tfa.flash_forward(q, k, v, **kw)
     grads = tfa.flash_backward(q, k, v, o, lse, do, **kw)
+    launches = dict(_build.LAUNCHES)
     want_o, want_lse = tfa._plain_fwd(q, k, v, **kw)
     want = tfa._plain_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {tfa.FWD_KERNEL: 1, tfa.DQ_KERNEL: 1,
-                                     tfa.DKV_KERNEL: 1}
+    assert launches == _flash_launches(dtype == 'f32')
     _assert_within_bar(o, want_o, f32=dtype == 'f32')
     _assert_within_bar(lse, want_lse, f32=True)
     for got, ref in zip(grads, want):
@@ -241,9 +263,44 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_flash_launches_count_their_route(cuda, dtype):
+    """The input dtype picks the route: bf16 launches count no .f32
+    entry, f32 launches count every one under .f32 as well."""
+    dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    xs = [x.requires_grad_(True)
+          for x in _flash_inputs(cuda, 1, 64, 64, 2, 64, dt, 1)[:3]]
+    _build.reset_launches()
+    o = tfa.flash_attention(*xs)
+    torch.autograd.grad(o.float().sum(), xs)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == _flash_launches(dtype == 'f32')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_flash_dq_writes_delta(cuda, dtype):
+    """K5a's delta output is rowsum(dO * O), [B, H, Sq] f32."""
+    dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    q, k, v, do = _flash_inputs(cuda, 2, 200, 200, 3, 128, dt, 2)
+    kw = dict(causal=True, scale=128**-0.5)
+    o, lse = tfa.flash_forward(q, k, v, **kw)
+    _, delta = tfa._flash_dq_cuda(q, k, v, o, lse, do, **kw)
+    want = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert delta.shape == want.shape and delta.dtype == torch.float32
+    err = (delta - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+@pytest.mark.gpu
 def test_flash_attention_autograd_gqa_on_the_card(cuda):
     """flash_attention's Function on CUDA tensors (GQA repeated at the
-    API) against the same call on the CPU (the plain versions)."""
+    API) against the same call on the CPU (the plain versions). The bar
+    is 1e-4 of each tensor's scale, max(1, max |want|), as phase 9 of
+    chip_smoke.py holds gradients: these reach tens in magnitude, where
+    f32 sums taken in another order differ by more than an absolute
+    1e-4 (2.4e-4 seen once on the card)."""
     gen = torch.Generator().manual_seed(3)
     q = torch.randn((2, 64, 4, 32), generator=gen)
     k = torch.randn((2, 64, 2, 32), generator=gen)
@@ -254,7 +311,9 @@ def test_flash_attention_autograd_gqa_on_the_card(cuda):
         o = tfa.flash_attention(*xs)
         outs.append([o] + list(torch.autograd.grad((o * o).sum(), xs)))
     for got, want in zip(outs[1], outs[0]):
-        _assert_within_bar(got.cpu(), want.detach(), f32=True)
+        want = want.detach()
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want.abs().max().item()), err
 
 
 @pytest.mark.gpu
