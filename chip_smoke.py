@@ -12,24 +12,31 @@ and cuDNN, so every f32 product runs in full f32.
 Phases (any failure exits 1 and prints no result line):
 
 1. The card's name and power limit (nvidia-smi); build every kernel
-   (one nvcc per source, all started together) and count each
-   library's tensor-core instructions in its SASS (``cuobjdump -sass``:
-   HGMMA is wgmma, HMMA mma.sync); flash_fwd and flash_bwd must hold
-   HGMMA (their bf16 kernels run on wgmma).
+   (one nvcc per source, all started together) and count each kernel
+   function's tensor-core instructions in its SASS (``cuobjdump -sass``
+   split at its ``Function :`` headers; HGMMA is wgmma, HMMA mma.sync),
+   one line per function; every instantiation of the bf16 kernels of
+   K4, K5a, K5b and K2 must hold HGMMA.
 2. K1, paged GQA decode, against its plain PyTorch version at
    Llama-3.1-8B decode shapes (B 8, S 1024, 8 kv heads, 4 query heads
    each, head_dim 128, page 128): ragged row bounds, dmask holes, an
    empty row, num_pages below the cache's pages, NaN wherever nothing
    may be read; bf16 and int8 caches.
-3. K2, chunked-prefill attention, against its plain version (G 2,
-   C 128, S 640, 32/8 heads, head_dim 128, offsets 0 and 384, NaN past
-   each row's frontier) in f32, bf16 and int8.
+3. K2, chunked-prefill attention, against its plain version: first
+   the bf16 q route (tensor cores) on bf16 and int8 caches at its edges
+   (head_dim 16, 64 and 128; C 40 and 200; GQA 1, 4 and 8; rows at
+   offsets 0, 63, 64 and S - C), then G 2, C 128, S 640, 32/8 heads,
+   head_dim 128, offsets 0 and 384 in f32 (the CUDA-core route), int8
+   and bf16; NaN past each row's frontier everywhere, and each launch
+   must count its route (``chunk_prefill.f32`` for a f32 q only).
    Bars, element-wise: |kernel - plain| <= 1e-4 in f32; in bf16 and
    int8, <= 1e-2 + 2^-7 |plain| — the TPU kernel's 1e-2 (PERFORMANCE.md,
-   paged decode) plus one bf16 step of the value itself, since the
-   plain version rounds probabilities to bf16 before P @ V (as the JAX
-   reference does) and the kernel keeps them in f32, so outputs above 1
-   may differ by a step (2^-6 = 0.0156 at magnitude 2-4).
+   paged decode) plus one bf16 step of the value itself, since a kernel
+   rounds at other places than its plain version (the plain version
+   rounds the normalized probabilities to bf16 before P @ V, as the JAX
+   reference does; the bf16 K2 rounds the unnormalized ones), so
+   outputs above 1 may differ by a step (2^-6 = 0.0156 at magnitude
+   2-4).
 3b. K3, spec-decode verify attention, against its plain version at
    Llama-3.1-8B serving shapes with spec_k 4 (B 8, V 5, 32/8 heads,
    head_dim 128, S 1024, the segment at column 700, n_cols 768): an
@@ -46,13 +53,15 @@ Phases (any failure exits 1 and prints no result line):
    prefill_budget=256, decode_chunk=8)``, serving 12 greedy requests
    (prompts of 100-512 tokens, 32 new tokens each). Every request
    must finish with 32 tokens, and the launch counts must equal
-   decode steps x 32 (K1) and prefill ticks x 32 (K2). Then the spec
+   decode steps x 32 (K1) and prefill ticks x 32 (K2, all on the bf16
+   route: no ``chunk_prefill.f32``). Then the spec
    path on the same weights (``phase_spec_path``): 12 requests on
    prompts that repeat a random segment, served spec off, spec on
    (``spec_k=4``) with the prompt-lookup proposer, and spec on with the
    spec-off tokens as drafts; each run's launches must equal its decode
    steps, prefill ticks and verify ticks x 32, K3's above 0 in both
-   spec runs. Output tokens/s and ``spec_stats()`` of each run.
+   spec runs, and no K2 launch on the f32 route. Output tokens/s and
+   ``spec_stats()`` of each run.
 6. Parity: the same width at depth 2 in f32; the engine's greedy
    tokens must equal the port's cache-free ``reference_generate``.
    A second pass with an int8 KV cache must finish every request
@@ -62,14 +71,16 @@ Phases (any failure exits 1 and prints no result line):
    phase 7. 6b: speculation on the same model and prompts — oracle,
    garbage and prompt-lookup drafts — must give the oracle's tokens and
    the spec-off engine's; an int8-KV spec pass must run K3's int8
-   branch.
+   branch. Every K2 launch of phases 6 and 6b (f32) counts under
+   ``chunk_prefill.f32``.
 7. K4 (flash forward), K5a (flash dQ) and K5b (flash dK/dV) against
    their plain versions (the backward on the kernel's own o and lse),
    on both routes: f32 (CUDA-core kernels) at S 256 causal and not,
-   Sq 128 < Sk 256 and a ragged S 200 (bar 1e-4); bf16 (K4 and K5b on
-   the tensor cores) at the same four shapes, a head_dim-64 case and
-   the training shapes B 4 x S 2048 x H 16 x D 128 causal (the bf16 bar
-   above, for o and the gradients alike; lse, f32 either way, 1e-4).
+   Sq 128 < Sk 256 and a ragged S 200 (bar 1e-4); bf16 (K4, K5a and
+   K5b on the tensor cores) at the same four shapes, a head_dim-64 case
+   and the training shapes B 4 x S 2048 x H 16 x D 128 causal (the bf16
+   bar above, for o and the gradients alike; lse, f32 either way, 1e-4;
+   K5a's delta within 1e-4 of max |delta| of rowsum(dO * o)).
    Every launch must count its route (``.f32`` entries on f32 only).
    Times at the training shapes: each kernel, its plain version
    (``_plain_bwd`` computes dQ, dK and dV together), SDPA forward, SDPA
@@ -94,7 +105,8 @@ Phases (any failure exits 1 and prints no result line):
    ``phase_train_parity``).
 10. Monolithic ``inference.generate`` on phase 6's model and prompts:
    greedy tokens equal to ``reference_generate``'s and the engine's,
-   K4 launched once per layer (the prefill), K1 per decode step.
+   K4 launched once per layer (the prefill, on the f32 route), K1 per
+   decode step.
 
 ``--profile-dir DIR`` adds a torch.profiler pass after the serving run,
 the organic spec run and phase 8 (device idle share, device time by
@@ -377,22 +389,81 @@ def chunk_cost(args):
     return nbytes, ops
 
 
+# K2 edge cases (C, H, n_kv, head_dim, S): C off the 64-row tile,
+# head_dim 16, 64 and 128, GQA 1, 4 and 8; each with rows at offsets 0,
+# 63, 64 and S - C.
+CHUNK_EDGES = ((40, 4, 4, 16, 300), (200, 16, 4, 64, 400),
+               (40, 32, 4, 128, 256), (200, 16, 2, 128, 512))
+
+
+def chunk_edge_inputs(torch, dev, c, h, n_kv, d, s, kind, seed):
+    """Four chunk rows at offsets 0, 63, 64 and S - C, bf16 q; NaN in
+    the cache from each row's frontier offset + C on (in the scales for
+    int8)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g_ = 4
+    off = torch.tensor([0, 63, 64, s - c], dtype=torch.int32, device=dev)
+    dead = (off + c)[:, None] <= torch.arange(s, device=dev)[None, :]
+    q = torch.randn((g_, c, h, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ks = vs = None
+    if kind == 'int8':
+        k, v = (torch.randint(-127, 128, (g_, s, n_kv, d), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = ((torch.rand((g_, s, n_kv), generator=gen, device=dev) *
+                   0.007 + 0.001).to(torch.bfloat16) for _ in range(2))
+        ks[dead] = float('nan')
+        vs[dead] = float('nan')
+    else:
+        k, v = (torch.randn((g_, s, n_kv, d), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        k[dead] = float('nan')
+        v[dead] = float('nan')
+    return (q, k, v, off, ks, vs)
+
+
+def chunk_check(torch, fa, args, kind, tag):
+    """K2 against its plain version; the launch must count its route
+    (.f32 for a f32 q only, .int8 for an int8 cache). Returns the max
+    abs error."""
+    from skypilot_tpu_torch.ops import _build
+    _build.reset_launches()
+    got = fa.chunk_prefill_attention(*args)
+    launches = dict(_build.LAUNCHES)
+    want = fa.chunk_attention_reference(*args)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, bf16_bar=kind != 'f32')
+    finite = bool(torch.isfinite(got.float()).all())
+    log(f'K2 {kind} {tag}: max_abs_err {err:.3g} (within bar: {ok}), '
+        f'finite {finite}')
+    route = {'chunk_prefill': 1}
+    if kind != 'bf16':
+        route[f'chunk_prefill.{kind}'] = 1
+    check(launches == route, f'K2 {kind} {tag}: launches {launches}, want '
+          f'{route}')
+    check(finite and ok, f'K2 {kind} {tag} disagrees with its plain version')
+    return err
+
+
 def phase_chunk(torch, dev, seed, report):
     from skypilot_tpu_torch.ops import flash_attention as fa
     entry = {'name': 'chunk_prefill', 'route': 'cuda',
              'source': 'skypilot_tpu_torch/ops/csrc/chunk_prefill.cu',
-             'replaces': 'skypilot_tpu/ops/flash_attention.py:459'}
+             'replaces': 'skypilot_tpu/ops/flash_attention.py:459',
+             'products': 'bf16 wgmma, bf16 and int8 caches (f32 route: '
+             'f32 CUDA cores)'}
+    edge_err = 0.0
+    for kind in ('bf16', 'int8'):
+        for c, h, n_kv, d, s in CHUNK_EDGES:
+            edge_err = max(edge_err, chunk_check(
+                torch, fa, chunk_edge_inputs(torch, dev, c, h, n_kv, d, s,
+                                             kind, seed),
+                kind, f'C {c} H {h}/{n_kv} D {d} S {s}'))
+    entry['bf16_edge_max_abs_err'] = edge_err
     for kind in ('f32', 'int8', 'bf16'):
         args = chunk_inputs(torch, dev, kind, seed)
-        got = fa.chunk_prefill_attention(*args)
-        want = fa.chunk_attention_reference(*args)
-        torch.cuda.synchronize()
-        err, ok = compare(got, want, bf16_bar=kind != 'f32')
-        finite = bool(torch.isfinite(got.float()).all())
-        log(f'K2 {kind}: max_abs_err {err:.3g} (within bar: {ok}), '
-            f'finite {finite}')
-        check(finite and ok,
-              f'K2 {kind} disagrees with its plain version')
+        err = chunk_check(torch, fa, args, kind, 'G 2 x C 128 x S 640')
         if kind == 'f32':
             entry['f32_max_abs_err'] = err
             continue
@@ -660,6 +731,8 @@ def phase_main_path(torch, dev, seed, card, profile_dir=None):
     check(launches.get('chunk_prefill', 0) == ticks * cfg.n_layers > 0,
           f'K2 launched {launches.get("chunk_prefill", 0)} times, want '
           f'{ticks} x {cfg.n_layers}')
+    check(launches.get('chunk_prefill.f32', 0) == 0,
+          f'bf16 serving launched K2 on the f32 route: {launches}')
     if profile_dir:
         again = [Request(('profiled', i), p, max_new=32)
                  for i, p in enumerate(prompts)]
@@ -727,9 +800,11 @@ def phase_spec_path(torch, dev, seed, card, cfg, params, profile_dir=None):
         n_l = cfg.n_layers
         check(launches.get('paged_decode', 0) == steps * n_l and
               launches.get('chunk_prefill', 0) == ticks * n_l > 0 and
+              launches.get('chunk_prefill.f32', 0) == 0 and
               launches.get('verify_attention', 0) == verify * n_l,
               f'spec path ({mode}): launches {launches}, want K1 {steps} x '
-              f'{n_l}, K2 {ticks} x {n_l}, K3 {verify} x {n_l}')
+              f'{n_l}, K2 {ticks} x {n_l} (none on the f32 route), K3 '
+              f'{verify} x {n_l}')
         check(mode == 'off' or verify > 0,
               f'spec path ({mode}): no verify tick ran')
         if mode == 'organic':
@@ -766,14 +841,21 @@ def kernel_group(name):
 def profile_run(torch, fn, out_dir, tag):
     """Run ``fn()`` again under torch.profiler (after the measured run,
     so it does not slow that one): device busy time against wall time,
-    and the kernels by device time, written to ``out_dir``."""
+    and the kernels by device time, written to ``out_dir``. Each of the
+    port's kernels is also counted twice, by the profiler and by the
+    wrappers' launch counts over the same ``fn()``, so a launch the
+    profiler's window missed shows."""
     from torch.profiler import ProfilerActivity, profile
+
+    from skypilot_tpu_torch.ops import _build
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        host = {k: n - before.get(k, 0) for k, n in _build.LAUNCHES.items()}
     events = prof.key_averages()
 
     def dev_us(e):
@@ -803,6 +885,12 @@ def profile_run(torch, fn, out_dir, tag):
     for group, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
         log(f'  {group:24s} {ms:10.1f} ms {n:8d} launches '
             f'{100 * ms / 1e3 / busy:5.1f}%')
+    counted = ', '.join(
+        f'{group.split()[0]} {groups.get(group, (0.0, 0))[1]}/'
+        f'{host.get(key, 0)}' for key, group in KERNEL_GROUPS
+        if host.get(key, 0) or group in groups)
+    log(f'profile ({tag}): kernel launches seen by the profiler / counted '
+        f'by the wrappers: {counted}')
     log('profile: top kernels by device time:')
     for e in kernels[:8]:
         log(f'  {dev_us(e) / 1e3:10.3f} ms {e.count:6d}x  {e.key[:90]}')
@@ -844,6 +932,10 @@ def phase_parity(torch, dev, seed):
             f'{launches}')
         check(all(len(g) == 16 for g in got),
               f'kv_quant={kv_quant}: a request did not finish')
+        check(launches.get('chunk_prefill.f32', 0) ==
+              launches.get('chunk_prefill', 0) > 0,
+              f'kv_quant={kv_quant}: a f32 K2 launch missed the f32 route: '
+              f'{launches}')
         if kv_quant:
             check(launches.get('paged_decode.int8', 0) > 0 and
                   launches.get('chunk_prefill.int8', 0) > 0,
@@ -893,6 +985,10 @@ def phase_spec_parity(torch, dev, parity):
             f'{eng.spec_stats()}; launches {launches}')
         check(all(len(g) == 16 for g in got),
               f'spec parity ({name}): a request did not finish')
+        check(launches.get('chunk_prefill.f32', 0) ==
+              launches.get('chunk_prefill', 0) > 0,
+              f'spec parity ({name}): a f32 K2 launch missed the f32 '
+              f'route: {launches}')
         k3 = launches.get('verify_attention', 0)
         check(k3 == eng.spec_ticks * cfg.n_layers,
               f'spec parity ({name}): K3 launched {k3} times for '
@@ -980,6 +1076,13 @@ def flash_check(torch, fa, args, causal, f32):
               f'{name} disagrees with its plain version (max abs err '
               f'{err:.3g})')
         errs[name] = err
+    # K5a's delta output, which K5b reads: rowsum(dO * o) in f32.
+    delta = fa._flash_dq_cuda(q, k, v, o, lse, do, **kw)[1]
+    want_delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    err = (delta - want_delta).abs().max().item()
+    check(err <= 1e-4 * want_delta.abs().max().item(),
+          f'delta disagrees with rowsum(dO * o) (max abs err {err:.3g})')
+    errs['delta'] = err
     return errs
 
 
@@ -1005,7 +1108,8 @@ def phase_flash(torch, dev, seed, report):
                 torch, dev, b, sq, sk, 16, dtype, seed, d), causal,
                 kind == 'f32')
             edge_err[kind] = max(edge_err[kind], *(
-                e for n, e in errs.items() if kind == 'f32' or n != 'lse'))
+                e for n, e in errs.items()
+                if n != 'delta' and (kind == 'f32' or n != 'lse')))
             log(f'K4/K5 {kind} {tag}: max_abs_err ' +
                 ', '.join(f'{n} {e:.3g}' for n, e in errs.items()))
     args = flash_inputs(torch, dev, 4, 2048, 2048, 16, torch.bfloat16, seed)
@@ -1039,8 +1143,7 @@ def phase_flash(torch, dev, seed, report):
         entry = {
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces,
-            'products': 'f32 CUDA cores' if name == 'flash_dq' else
-            'bf16 wgmma (f32 route: f32 CUDA cores)',
+            'products': 'bf16 wgmma (f32 route: f32 CUDA cores)',
             'max_abs_err': errs['o'] if fwd else errs['dq'] if
             name == 'flash_dq' else max(errs['dk'], errs['dv']),
             'f32_max_abs_err': edge_err['f32'],
@@ -1179,28 +1282,71 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
     return launches
 
 
+# Kernel functions whose SASS must hold HGMMA (wgmma): every
+# instantiation of the bf16 routes of K4, K5a, K5b and K2.
+TENSOR_CORE_KERNELS = {
+    'flash_fwd': ('flash_fwd_tc_kernel',),
+    'flash_bwd': ('flash_dq_tc_kernel', 'flash_dkv_tc_kernel'),
+    'chunk_prefill': ('chunk_prefill_tc_kernel',),
+}
+
+
+def sass_functions(tool, path):
+    """{kernel function: SASS lines} of one library, split at the
+    ``Function :`` headers of ``cuobjdump -sass``."""
+    out = subprocess.run([tool, '-sass', path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if 'Function : ' in line:
+            name = line.split('Function : ', 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
+def demangled(names, tool_dir):
+    """Readable names through cu++filt where the toolkit has it."""
+    filt = os.path.join(tool_dir, 'cu++filt')
+    if not os.access(filt, os.X_OK):
+        return dict(zip(names, names))
+    out = subprocess.run([filt], input='\n'.join(names), capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
 def sass_counts():
-    """Tensor-core instructions in each kernel library's SASS:
-    HGMMA (wgmma) and HMMA (mma.sync). flash_fwd and flash_bwd must
-    hold HGMMA: their bf16 kernels run on wgmma."""
+    """Tensor-core instructions in each kernel function's SASS: HGMMA
+    (wgmma) and HMMA (mma.sync), one line per function. Every
+    instantiation of the bf16 kernels of flash_fwd (K4), flash_bwd (K5a
+    and K5b) and chunk_prefill (K2) must hold HGMMA."""
     from skypilot_tpu_torch.ops import _build
-    tool = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    tool_dir = os.path.dirname(_build._nvcc())
+    tool = os.path.join(tool_dir, 'cuobjdump')
     if not os.access(tool, os.X_OK):
         log(f'tensor-core instructions in SASS: not checked ({tool} '
             'missing)')
         return
-    counts = {}
-    for name in _build.SOURCES:
-        sass = subprocess.run([tool, '-sass', _build._lib_path(name)],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout.splitlines()
-        counts[name] = {op: sum(op in line for line in sass)
-                        for op in ('HGMMA', 'HMMA')}
-        log(f'  {name}: {counts[name]["HGMMA"]} HGMMA, '
-            f'{counts[name]["HMMA"]} HMMA')
-    check(counts['flash_fwd']['HGMMA'] > 0 and
-          counts['flash_bwd']['HGMMA'] > 0,
-          f'no wgmma in the flash kernels\' SASS: {counts}')
+    missing = []
+    for lib in _build.SOURCES:
+        funcs = sass_functions(tool, _build._lib_path(lib))
+        names = demangled(sorted(funcs), tool_dir)
+        required = TENSOR_CORE_KERNELS.get(lib, ())
+        found = {key: 0 for key in required}
+        for name in sorted(funcs):
+            counts = {op: sum(op in line for line in funcs[name])
+                      for op in ('HGMMA', 'HMMA')}
+            log(f'  {lib}: {counts["HGMMA"]:4d} HGMMA, {counts["HMMA"]:3d} '
+                f'HMMA  {names[name][:110]}')
+            for key in required:
+                if key in name:
+                    found[key] += 1
+                    if counts['HGMMA'] == 0:
+                        missing.append(names[name])
+        missing += [f'{lib}: no {key} function'
+                    for key, n in found.items() if n == 0]
+    check(not missing, f'no wgmma in the SASS of {missing}')
 
 
 def flat_params(tree, prefix=''):
@@ -1309,9 +1455,13 @@ def phase_generate(torch, dev, parity):
         f'reference_generate; launches {launches}')
     check(got == want, f'generate tokens {got} != reference {want}')
     check(got == engine_tokens, 'generate tokens != the engine\'s')
-    check(launches.get('flash_fwd', 0) == cfg.n_layers,
+    check(launches.get('flash_fwd', 0) == cfg.n_layers ==
+          launches.get('flash_fwd.f32', 0),
           f'K4 launched {launches.get("flash_fwd", 0)} times, want '
-          f'{cfg.n_layers} (one prefill)')
+          f'{cfg.n_layers} (one prefill), all on the f32 route')
+    check(launches.get('chunk_prefill.f32', 0) ==
+          launches.get('chunk_prefill', 0),
+          f'a f32 K2 launch missed the f32 route: {launches}')
     check(launches.get('paged_decode', 0) == 15 * cfg.n_layers,
           f'K1 launched {launches.get("paged_decode", 0)} times, want '
           f'15 decode steps x {cfg.n_layers}')

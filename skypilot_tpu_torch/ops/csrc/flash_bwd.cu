@@ -12,7 +12,7 @@
 //   flash_dq:  dQ = sum over key tiles of dS . K           (3 products)
 //   flash_dkv: dV = sum over query tiles of P^T . dO,
 //              dK = sum over query tiles of dS^T . Q        (4 products)
-// flash_dq runs first: it computes delta while staging each query tile
+// flash_dq runs first: it computes delta from its query tile's O and dO
 // and also writes it to a [B, H, Sq] f32 output, which the bf16
 // flash_dkv reads instead of re-reading O for every key tile. Each block
 // owns its output tile and loops over the other axis, so there are no
@@ -23,29 +23,36 @@
 // What bounds them on an H100: at the training shapes (B 4, H 16,
 // S 2048, D 128, bf16, causal) the products are 103 GFLOP (dq) and
 // 137 GFLOP (dkv) per call, against ~60 MB of inputs — the bf16
-// tensor-core rate bounds both (~0.1 ms).
+// tensor-core rate bounds both (~0.1 ms). The input type picks the
+// kernels:
 //
-// flash_dkv on bf16 (flash_dkv_tc_kernel) runs its four products on the
-// tensor cores (flash_tc.cuh), FlashAttention-2's key-stationary loop:
-// one block of two warpgroups owns 128 keys of dK and dV (64 per
-// warpgroup, K and V loaded once) and walks 64-query tiles from the
-// causal start, Q, dO, lse and delta double-buffered with cp.async. Per
-// tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands from shared
-// memory, K-major), P^T and dS^T / scale on the fragments in registers,
-// then dV += P^T dO and dK += dS^T Q (wgmma, P^T and dS^T as bf16
-// register A operands, dO and Q through the transpose bit); dK takes the
-// scale once at the end. P and dS are rounded to bf16 for those two
-// products, as flash kernels on tensor cores do.
+// bf16 runs every product on the tensor cores (flash_tc.cuh), in
+// FlashAttention-2's two loops. flash_dq (flash_dq_tc_kernel) is
+// query-stationary: one block of two warpgroups owns 128 query rows of
+// dQ (64 per warpgroup; Q and dO loaded once, delta summed from O and dO
+// in a prologue while the first key tile loads) and walks 64-key tiles of
+// K and V up to the causal frontier, double-buffered with cp.async, the
+// heaviest query tiles first. Per tile: S = Q K^T and dP = dO V^T (wgmma,
+// both operands from shared memory, K-major), P and dS / scale on the
+// fragments in registers, then dQ += dS K (wgmma, dS as a bf16 register A
+// operand, K through the transpose bit). flash_dkv (flash_dkv_tc_kernel)
+// is key-stationary: one block of two warpgroups owns 128 keys of dK and
+// dV (64 per warpgroup, K and V loaded once) and walks 64-query tiles
+// from the causal start, Q, dO, lse and delta double-buffered with
+// cp.async. Per tile: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T /
+// scale on the fragments, then dV += P^T dO and dK += dS^T Q (P^T and
+// dS^T as bf16 register A operands, dO and Q through the transpose bit).
+// dQ and dK take the scale once at the end. P and dS are rounded to bf16
+// for the products that take them, as flash kernels on tensor cores do.
 //
-// flash_dq (both types) and flash_dkv on f32 run their products in f32
-// on the CUDA cores — the f32 route holds a 1e-4 bar that TF32 products
-// would not. The same 16 x 16 thread grid and float4 tiles as the
-// forward (flash_common.cuh) keep several FMAs per shared-memory load.
-// flash_dq stages Q and dO once per 64-query tile and 32-key tiles of K
-// and V (111 KB, two blocks per SM); the f32 flash_dkv stages K and V
-// once per 64-key tile and 32-query tiles of Q and dO, recomputes delta
-// from O, and keeps P and dS in shared memory for the two transposed
-// products (119 KB, one block per SM).
+// f32 runs its products in f32 on the CUDA cores — the f32 route holds a
+// 1e-4 bar that TF32 products would not. The same 16 x 16 thread grid
+// and float4 tiles as the forward (flash_common.cuh) keep several FMAs
+// per shared-memory load. flash_dq stages Q and dO once per 64-query
+// tile and 32-key tiles of K and V (111 KB, two blocks per SM); the f32
+// flash_dkv stages K and V once per 64-key tile and 32-query tiles of Q
+// and dO, recomputes delta from O, and keeps P and dS in shared memory
+// for the two transposed products (119 KB, one block per SM).
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -396,6 +403,180 @@ __global__ void __launch_bounds__(kThreads, 1) flash_dkv_tc_kernel(
   }
 }
 
+constexpr int kTcDqBq = 128;  // query rows per block: two warpgroups of 64
+constexpr int kTcDqBk = 64;   // keys per tile
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_dq_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
+    const float* __restrict__ lse, const __nv_bfloat16* __restrict__ dO,
+    __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int Sq,
+    int Sk, int H, float scale, int causal) {
+  using namespace flash_tc;
+  constexpr int Dp = padded(D);
+  constexpr int kQTile = kTcDqBq * Dp * 2;  // bytes of the Q or dO tile
+  constexpr int kKTile = kTcDqBk * Dp * 2;  // bytes of a K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // Q, dO, K[0], K[1], V[0], V[1], then f32 lse (log2 units) and delta
+  // of the block's rows.
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t do_s = q_s + kQTile;
+  const uint32_t kv_s = q_s + 2 * kQTile;  // K[i] at +i, V[i] at +2 + i
+  float* stats = reinterpret_cast<float*>(smem + 2 * kQTile + 4 * kKTile);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  // High query tiles see the most keys under the causal mask: they come
+  // first in the grid's slowest index.
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcDqBq;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  // This thread's first accumulator row in the block; the second is +8.
+  const int row_in = wg * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2);
+  const int cq = 2 * (tid & 3);
+  const int offset = Sk - Sq;
+  const int q_last = min(Sq, q0 + kTcDqBq) - 1;
+  const int kv_end = causal ? min(Sk, q_last + offset + 1) : Sk;
+  const int n_tiles = (kv_end + kTcDqBk - 1) / kTcDqBk;
+  const float scale2 = scale * kLog2e;
+
+  zero_padding<D, kTcDqBq, kThreads>(smem);
+  zero_padding<D, kTcDqBq, kThreads>(smem + kQTile);
+  for (int t = 0; t < 4; ++t)
+    zero_padding<D, kTcDqBk, kThreads>(smem + 2 * kQTile + t * kKTile);
+  load_tile<D, kTcDqBq, kThreads>(q_s, q, b, q0, Sq, H, h);
+  load_tile<D, kTcDqBq, kThreads>(do_s, dO, b, q0, Sq, H, h);
+  load_tile<D, kTcDqBk, kThreads>(kv_s, k, b, 0, Sk, H, h);
+  load_tile<D, kTcDqBk, kThreads>(kv_s + 2 * kKTile, v, b, 0, Sk, H, h);
+  cp_async_commit();
+
+  // delta = rowsum(dO * O) in f32 while the first tiles load: two
+  // threads per row, 16-byte loads; written for K5b and kept, with lse,
+  // for the loop.
+  {
+    const int r = tid >> 1;
+    const int row = q0 + r;
+    float dot = 0.f;
+    if (row < Sq) {
+      const size_t base = row_index(b, row, Sq, H, h, D);
+      for (int u = tid & 1; u < D / 8; u += 2) {
+        const uint4 a = *reinterpret_cast<const uint4*>(o + base + 8 * u);
+        const uint4 g = *reinterpret_cast<const uint4*>(dO + base + 8 * u);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 af = __bfloat1622float2(a2[e]);
+          const float2 gf = __bfloat1622float2(g2[e]);
+          dot = fmaf(af.x, gf.x, dot);
+          dot = fmaf(af.y, gf.y, dot);
+        }
+      }
+    }
+    dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+    if ((tid & 1) == 0) {
+      const size_t idx = ((size_t)b * H + h) * Sq + row;
+      stats[r] = row < Sq ? lse[idx] * kLog2e : 0.f;
+      stats[kTcDqBq + r] = dot;
+      if (row < Sq) delta[idx] = dot;
+    }
+  }
+  __syncthreads();
+  const float lse2[2] = {stats[row_in], stats[row_in + 8]};
+  const float dl[2] = {stats[kTcDqBq + row_in], stats[kTcDqBq + row_in + 8]};
+
+  float acc[Dp / 2];
+#pragma unroll
+  for (int i = 0; i < Dp / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTcDqBk;
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_tile<D, kTcDqBk, kThreads>(kv_s + (buf ^ 1) * kKTile, k, b,
+                                      k0 + kTcDqBk, Sk, H, h);
+      load_tile<D, kTcDqBk, kThreads>(kv_s + (2 + (buf ^ 1)) * kKTile, v, b,
+                                      k0 + kTcDqBk, Sk, H, h);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t (and Q, dO) landed for every warpgroup
+    const uint32_t k_s = kv_s + buf * kKTile;
+    const uint32_t v_s = kv_s + (2 + buf) * kKTile;
+
+    float s[kTcDqBk / 2], dp[kTcDqBk / 2];
+#pragma unroll
+    for (int i = 0; i < kTcDqBk / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss(s, desc_kmajor<kTcDqBq>(q_s + wg * 64 * 128, ks),
+               desc_kmajor<kTcDqBk>(k_s, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss(dp, desc_kmajor<kTcDqBq>(do_s + wg * 64 * 128, ks),
+               desc_kmajor<kTcDqBk>(v_s, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S * scale - lse) and dS / scale = P * (dP - delta); tiles
+    // that cross the causal diagonal or the key end are masked.
+    const bool edge =
+        k0 + kTcDqBk > Sk || (causal && k0 + kTcDqBk - 1 > q0 + offset);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row_in + 8 * i;
+#pragma unroll
+      for (int j = 0; j < kTcDqBk / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int idx = 4 * j + 2 * i + e;
+          float p = exp2f(fmaf(s[idx], scale2, -lse2[i]));
+          if (edge) {
+            const int key = k0 + 8 * j + cq + e;
+            if (key >= Sk || (causal && key > row + offset)) p = 0.f;
+          }
+          dp[idx] = p * (dp[idx] - dl[i]);
+        }
+    }
+
+    uint32_t da[kTcDqBk / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kTcDqBk / 16; ++kk) a_frag(dp, kk, da[kk]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcDqBk / 16; ++kk)
+      wgmma_rs(acc, da[kk], desc_mnmajor<kTcDqBk>(k_s, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // tile t's reads are done before its buffers take
+                      // tile t + 2
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + row_in + 8 * i;
+    if (row >= Sq) continue;
+    const size_t base = row_index(b, row, Sq, H, h, D);
+#pragma unroll
+    for (int j = 0; j < Dp / 8; ++j)
+      if (8 * j < D)
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + 8 * j + cq) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i] * scale,
+                                  acc[4 * j + 2 * i + 1] * scale);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *o, *lse, *dO;
   void *dq, *delta, *dk, *dv;  // delta: flash_dq's output, flash_dkv's input
@@ -436,6 +617,23 @@ int launch_dkv(const Args& a, cudaStream_t st) {
 }
 
 template <int D>
+int launch_dq_tc(const Args& a, cudaStream_t st) {
+  constexpr int Dp = flash_tc::padded(D);
+  const size_t smem = (size_t)2 * kTcDqBq * Dp * 2 +
+                      (size_t)4 * kTcDqBk * Dp * 2 +
+                      2 * kTcDqBq * sizeof(float) + 1024;
+  using bf16 = __nv_bfloat16;
+  return launch(flash_dq_tc_kernel<D>,
+                dim3(a.H, a.B, (a.Sq + kTcDqBq - 1) / kTcDqBq), smem, st,
+                static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+                static_cast<const float*>(a.lse),
+                static_cast<const bf16*>(a.dO), static_cast<bf16*>(a.dq),
+                static_cast<float*>(a.delta), a.Sq, a.Sk, a.H, a.scale,
+                a.causal);
+}
+
+template <int D>
 int launch_dkv_tc(const Args& a, cudaStream_t st) {
   constexpr int Dp = flash_tc::padded(D);
   const size_t smem = (size_t)2 * kTcKvBk * Dp * 2 +
@@ -452,17 +650,16 @@ int launch_dkv_tc(const Args& a, cudaStream_t st) {
                 static_cast<bf16*>(a.dv), a.Sq, a.Sk, a.H, a.scale, a.causal);
 }
 
-// which: 0 = flash_dq, 1 = flash_dkv. bf16 flash_dkv takes the
-// tensor-core kernel; everything else the CUDA-core one.
+// which: 0 = flash_dq, 1 = flash_dkv. bf16 takes the tensor-core
+// kernels, f32 the CUDA-core ones.
 template <typename T>
 int dispatch_d(int which, int D, const Args& a, cudaStream_t st) {
   return with_head_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    if (which == 0) return launch_dq<T, kD>(a, st);
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      return launch_dkv_tc<kD>(a, st);
+      return which == 0 ? launch_dq_tc<kD>(a, st) : launch_dkv_tc<kD>(a, st);
     else
-      return launch_dkv<T, kD>(a, st);
+      return which == 0 ? launch_dq<T, kD>(a, st) : launch_dkv<T, kD>(a, st);
   });
 }
 

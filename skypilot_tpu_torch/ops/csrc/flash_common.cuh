@@ -1,6 +1,6 @@
 // CUDA-core tiles and products of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): the f32 route of K4 and K5b, and K5a on
-// both types. The bf16 tensor-core route's tile layer is flash_tc.cuh.
+// (flash_fwd.cu, flash_bwd.cu): the f32 route of K4, K5a and K5b. The
+// bf16 tensor-core route's tile layer is flash_tc.cuh.
 //
 // Layout: q/k/v/o and their gradients are [B, S, H, D], lse and the
 // row sums delta are [B, H, S] f32. A block of kThreads = 256 threads is
@@ -24,18 +24,11 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ size_t row_index(int b, int s, int S, int H,
                                             int h, int D) {

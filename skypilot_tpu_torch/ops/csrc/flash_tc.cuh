@@ -1,7 +1,11 @@
-// Tensor-core tile layer of the bf16 flash-attention kernels
-// (flash_fwd.cu's K4 and flash_bwd.cu's K5b on their bf16 route).
+// Tensor-core tile layer of the bf16 attention kernels: flash_fwd.cu's
+// K4, flash_bwd.cu's K5a and K5b and chunk_prefill.cu's K2, each on its
+// bf16 route.
 //
-// Tiles: R rows x D head_dim columns of a [B, S, H, D] bf16 tensor, kept
+// Tiles: R rows x D head_dim columns of one head of a [B, S, H, D] bf16
+// tensor (load_tile), or of any bf16 matrix with a row stride and a
+// live-row bound, such as a kv head of a [G, S, n_kv, D] cache
+// (load_rows), or of an int8 cache converted on the way (Int8Rows); kept
 // in shared memory as bf16 in wgmma's 128-byte-swizzle layout. Columns
 // are padded to Dp = D rounded up to 64 and split into Dp / 64 chunks of
 // [R][64] (128-byte rows), one chunk after the other; within a chunk the
@@ -48,6 +52,11 @@ __host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Byte offset of the 16-byte unit u (columns 8u .. 8u + 7) of row r in a
@@ -102,6 +111,82 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
     cp_async16(dst + unit_offset<R>(r, u), p, ok);
   }
 }
+
+// Rows [row0, row0 + R) of a bf16 matrix whose row s starts at
+// src + s * stride (elements) into the tile at `dst`, one cp.async per
+// 16 bytes. Rows at or past `end` fill with zeros and are never read, so
+// they may hold anything (NaN past a KV cache's causal frontier); `end`
+// is the live-row bound, independent of the stride. The columns D .. Dp
+// of the tile are not written.
+template <int D, int R, int kThreads>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int end, size_t stride) {
+  constexpr int kUnits = D / 8;
+  for (int i = threadIdx.x; i < R * kUnits; i += kThreads) {
+    const int r = i / kUnits;
+    const int u = i - r * kUnits;
+    const int s = row0 + r;
+    const bool ok = s < end;
+    cp_async16(dst + unit_offset<R>(r, u), src + (ok ? s : 0) * stride + u * 8,
+               ok);
+  }
+}
+
+// int8 rows into a bf16 tile. cp.async cannot convert, so the rows come
+// through registers in two steps: load() starts 16-byte global loads of
+// rows [row0, row0 + R) (zeros at or past `end`, which are never read),
+// and store() — called later, so the loads are in flight meanwhile —
+// converts them to bf16 and writes them into the same swizzled layout as
+// load_rows. The conversion is exact: |x| <= 128 fits bf16's 8-bit
+// significand. store() writes through the generic proxy: a
+// fence.proxy.async (cp_async_wait does one) and a barrier must follow
+// before wgmma reads the tile.
+template <int D, int R, int kThreads>
+struct Int8Rows {
+  static constexpr int kUnits = D / 16;  // 16-byte int8 units per row
+  static constexpr int kPer = (R * kUnits + kThreads - 1) / kThreads;
+  uint4 v[kPer];
+
+  __device__ __forceinline__ void load(const int8_t* src, int row0, int end,
+                                       size_t stride) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int i = threadIdx.x + p * kThreads;
+      const int r = i / kUnits;
+      const int s = row0 + r;
+      v[p] = make_uint4(0, 0, 0, 0);
+      if (i < R * kUnits && s < end)
+        v[p] = *reinterpret_cast<const uint4*>(src + s * stride +
+                                               (i - r * kUnits) * 16);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint8_t* tile) const {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int i = threadIdx.x + p * kThreads;
+      if (i >= R * kUnits) continue;
+      const int r = i / kUnits;
+      const int u = i - r * kUnits;
+      const uint32_t w[4] = {v[p].x, v[p].y, v[p].z, v[p].w};
+      uint32_t b[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // Bytes 0..3 of word j are columns 4j .. 4j + 3.
+        const auto col = [&](int k) {
+          return static_cast<float>(static_cast<int8_t>(w[j] >> (8 * k)));
+        };
+        b[2 * j] = pack_bf16(col(0), col(1));
+        b[2 * j + 1] = pack_bf16(col(2), col(3));
+      }
+      *reinterpret_cast<uint4*>(tile + unit_offset<R>(r, 2 * u)) =
+          make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(tile + unit_offset<R>(r, 2 * u + 1)) =
+          make_uint4(b[4], b[5], b[6], b[7]);
+    }
+  }
+};
 
 // Zero the padding columns D .. Dp of an R-row tile (none when D is a
 // multiple of 64): products whose n is head_dim run over all Dp columns,
@@ -160,11 +245,6 @@ template <int M>
 __device__ __forceinline__ void fence_regs(float (&d)[M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Columns 16 kk .. 16 kk + 15 of an accumulator fragment as the bf16 A

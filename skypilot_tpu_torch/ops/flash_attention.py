@@ -16,12 +16,13 @@ hand-written CUDA kernels:
 counterpart of the reference's ``custom_vjp``: it saves q, k, v, o and
 the log-sum-exp, and its backward recomputes the probabilities from
 them. K5a runs first and also writes delta = rowsum(dO * O), which K5b
-reads. The flash kernels take one of two routes by input dtype, never
-by failure: bf16 runs K4 and K5b on the tensor cores (``wgmma``,
-``csrc/flash_tc.cuh``; P and dS rounded to bf16 for the second
-products), f32 keeps full-f32 products on the CUDA cores (K5a is a
-CUDA-core kernel on both). A f32 launch also counts under
-``<kernel>.f32`` in ``_build.LAUNCHES``.
+reads. The flash kernels and the chunk kernel take one of two routes
+by the dtype of q, never by failure: bf16 runs K4, K5a, K5b and K2 on
+the tensor cores (``wgmma``, ``csrc/flash_tc.cuh``; P and dS rounded to
+bf16 for the second products; K2's bf16 route takes bf16 and int8
+caches, head_dim in ``FLASH_HEAD_DIMS``), f32 keeps full-f32 products
+on the CUDA cores. A f32 launch also counts under ``<kernel>.f32`` in
+``_build.LAUNCHES``.
 
 ``_plain_fwd``/``_plain_bwd`` (mirroring the reference's
 ``_xla_fwd``/``_xla_bwd``) are the kernels' plain versions;
@@ -52,9 +53,9 @@ VERIFY_KERNEL = 'verify_attention'
 # Query rows (query heads per kv head x segment tokens) one verify
 # kernel block holds: 20 at Llama-3.1-8B with spec_k 4.
 VERIFY_MAX_ROWS = 64
-# head_dim values the flash kernels are built for: multiples of 16 up to
-# 128 (a wgmma k-step is 16 columns; the CUDA-core kernels give each
-# thread head_dim / 16 output columns).
+# head_dim values the flash kernels (and the bf16 chunk kernel) are built
+# for: multiples of 16 up to 128 (a wgmma k-step is 16 columns; the
+# CUDA-core flash kernels give each thread head_dim / 16 output columns).
 FLASH_HEAD_DIMS = tuple(range(16, 129, 16))
 
 
@@ -378,6 +379,9 @@ def _chunk_prefill_cuda(q, k, v, q_offset, k_scale, v_scale):
     if q_offset.shape != (g,) or q_offset.dtype != torch.int32:
         raise ValueError(f'q_offset must be int32 [{g}], got '
                          f'{q_offset.dtype} {tuple(q_offset.shape)}')
+    if q.dtype == torch.bfloat16 and d not in FLASH_HEAD_DIMS:
+        raise ValueError(f'the bf16 chunk kernel takes head_dim in '
+                         f'{FLASH_HEAD_DIMS} (16-column wgmma steps), got {d}')
     lib = _build.load(KERNEL)
     fn = lib.chunk_prefill
     P, I = ctypes.c_void_p, ctypes.c_int
@@ -391,7 +395,7 @@ def _chunk_prefill_cuda(q, k, v, q_offset, k_scale, v_scale):
                 d**-0.5, 1 if q.dtype == torch.bfloat16 else 0,
                 1 if quant else 0, _stream(q))
     _build.check(status, KERNEL)
-    _build.LAUNCHES[KERNEL] += 1
+    _count(KERNEL, q.dtype)
     if quant:
         _build.LAUNCHES[KERNEL + '.int8'] += 1
     return out
@@ -405,9 +409,11 @@ def chunk_prefill_attention(q, k, v, q_offset, k_scale=None, v_scale=None
     q_offset[g] + i; k/v [G, S, H_kv, D] — each row's prompt-region KV
     with the chunk already written at [offset, offset + C) (bf16/f32,
     or int8 with k_scale/v_scale [G, S, H_kv]); q_offset [G] int32.
-    Returns [G, C, H, D]. CUDA tensors run the hand-written kernel
-    (int8 caches included: it dequantizes while staging a tile); CPU
-    tensors run ``chunk_attention_reference``."""
+    Returns [G, C, H, D]. CUDA tensors run the hand-written kernel,
+    int8 caches included: a bf16 q takes the tensor-core kernel
+    (head_dim in ``FLASH_HEAD_DIMS``, else ValueError), a f32 q the
+    CUDA-core one (head_dim up to 128). CPU tensors run
+    ``chunk_attention_reference``."""
     if q.is_cuda:
         return _chunk_prefill_cuda(q, k, v, q_offset, k_scale, v_scale)
     return chunk_attention_reference(q, k, v, q_offset, k_scale, v_scale)

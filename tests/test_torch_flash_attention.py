@@ -10,8 +10,9 @@ dQ/dK/dV within 2e-4 on the same o and lse. ``flash_attention``'s
 autograd (GQA repeated at the API) is held against ``jax.grad`` of the
 JAX ``flash_attention`` within 2e-4. The kernels themselves run on the
 card only (tests/test_torch_kernels_gpu.py); the bf16 tensor-core
-route's rounding (P and dS to bf16 before the second products) is
-rehearsed here in f32 arithmetic against the bf16 bar."""
+route's rounding (P and dS to bf16 before the second products of K4,
+K5a and K5b) is rehearsed here in f32 arithmetic against the bf16
+bar."""
 import importlib
 
 import jax
@@ -148,12 +149,15 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _tensor_core_route(q, k, v, do, causal, scale, block=128):
-    """The bf16 K4 and K5b (csrc/flash_fwd.cu, flash_bwd.cu) in f32
+def _tensor_core_route(q, k, v, do, causal, scale, block=128,
+                       dq_block=64):
+    """The bf16 K4, K5a and K5b (csrc/flash_fwd.cu, flash_bwd.cu) in f32
     arithmetic on bf16 inputs: K4's online softmax over 128-key tiles in
     log2 units, P rounded to bf16 before P V while l sums the f32 P;
-    K5b's P and dS / scale rounded to bf16 before dV and dK, with delta
-    from K4's (bf16) o. Returns (o, lse, dk, dv) as the kernels do."""
+    K5a's dS / scale rounded to bf16 before dQ += dS K over 64-key
+    tiles; K5b's P and dS / scale rounded to bf16 before dV and dK; delta
+    from K4's (bf16) o. Returns (o, lse, dq, dk, dv) as the kernels
+    do."""
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum('bqhd,bkhd->bhqk', qf, kf)
@@ -181,9 +185,14 @@ def _tensor_core_route(q, k, v, do, causal, scale, block=128):
     dp = torch.einsum('bqhd,bkhd->bhqk', dof, vf)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)
     ds = p * (dp - delta[..., None])
+    dq = torch.zeros(qf.shape)
+    for k0 in range(0, sk, dq_block):
+        dq += torch.einsum('bhqk,bkhd->bqhd', _bf16(ds[..., k0:k0 + dq_block]),
+                           kf[:, k0:k0 + dq_block])
     dv = torch.einsum('bhqk,bqhd->bkhd', _bf16(p), dof)
     dk = torch.einsum('bhqk,bqhd->bkhd', _bf16(ds), qf) * scale
-    return o, lse, dk.to(k.dtype), dv.to(v.dtype)
+    return (o, lse, (dq * scale).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @pytest.mark.parametrize('b,sq,sk,h,d,causal', [
@@ -204,13 +213,14 @@ def test_tensor_core_rounding_within_the_bf16_bar(b, sq, sk, h, d, causal):
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16)
                    for x in (q, k, v, do))
     scale = d**-0.5
-    o, lse, dk, dv = _tensor_core_route(q, k, v, do, causal, scale)
+    o, lse, dq, dk, dv = _tensor_core_route(q, k, v, do, causal, scale)
     want_o, want_lse = tfa._plain_fwd(q, k, v, causal=causal, scale=scale)
-    _, want_dk, want_dv = tfa._plain_bwd(q, k, v, o, lse, do, causal=causal,
-                                         scale=scale)
+    want_dq, want_dk, want_dv = tfa._plain_bwd(q, k, v, o, lse, do,
+                                               causal=causal, scale=scale)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-4,
                                rtol=0)
-    for got, want in ((o, want_o), (dk, want_dk), (dv, want_dv)):
+    for got, want in ((o, want_o), (dq, want_dq), (dk, want_dk),
+                      (dv, want_dv)):
         err = (got.float() - want.float()).abs()
         bar = 1e-2 + 2**-7 * want.float().abs()
         assert bool((err <= bar).all()), (err - bar).max().item()

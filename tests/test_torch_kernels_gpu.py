@@ -7,20 +7,22 @@ JAX is not installed:
         tests/test_torch_kernels_gpu.py -q
 
 K1 (paged decode) at Llama-3.1-8B decode shapes, K2 (chunked
-prefill) at the engine's chunk shapes and K3 (spec-decode verify) at
-the 8B verify shapes and its edges, NaN planted wherever a kernel
-may not read; K4 (flash forward: o and lse) and K5a/K5b (flash dQ and
-dK/dV) causal and not, with Sq < Sk, a ragged S and every head_dim
-they take, on both routes (f32: CUDA cores; bf16: tensor cores for K4
-and K5b), and the route and delta K5a hands to K5b. Bars, element-wise:
+prefill) at the engine's chunk shapes and its edges (head_dim 16, 64
+and 128, ragged C, offsets 0, 63, 64 and S - C, GQA 1, 4 and 8) and K3
+(spec-decode verify) at the 8B verify shapes and its edges, NaN
+planted wherever a kernel may not read; K4 (flash forward: o and lse)
+and K5a/K5b (flash dQ and dK/dV) causal and not, with Sq < Sk, a
+ragged S and every head_dim they take, on both routes (f32: CUDA
+cores; bf16: tensor cores for K2, K4, K5a and K5b), the route each
+launch counts and the delta K5a hands to K5b. Bars, element-wise:
 |kernel - plain| <= 1e-4 in f32; in bf16 and int8, <= 1e-2 + 2^-7
 |plain| (the TPU kernel's 1e-2 plus one bf16 step of the value: the
 plain versions keep f32 inside and round once at the end, while a
-kernel may round at another place — K1-K3 keep probabilities in f32
-where the chunk and verify plain versions round them, the bf16 K4 and
-K5b round P and dS to bf16 for their second products). int8 scales
-keep the dequantized values within +-1. TF32 is off: the plain
-versions' f32 products run in full f32.
+kernel may round at another place — K1 and K3 keep probabilities in
+f32 where the chunk and verify plain versions round them, the bf16 K2,
+K4, K5a and K5b round P and dS to bf16 for their second products).
+int8 scales keep the dequantized values within +-1. TF32 is off: the
+plain versions' f32 products run in full f32.
 """
 import pytest
 import torch
@@ -122,6 +124,58 @@ def test_chunk_prefill_kernel_matches_plain(cuda, dtype):
     _assert_within_bar(got, want, f32=dtype == 'f32')
 
 
+def _chunk_edge_inputs(dev, c, h, n_kv, d, s, dtype, seed):
+    """Four chunk rows at offsets 0, 63, 64 and S - C; NaN in the cache
+    from each row's frontier offset + C on (in the scales for int8)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = 4
+    off = torch.tensor([0, 63, 64, s - c], dtype=torch.int32, device=dev)
+    dead = (off + c)[:, None] <= torch.arange(s, device=dev)[None, :]
+    q = torch.randn((g, c, h, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ks = vs = None
+    if dtype == 'int8':
+        k, v = (torch.randint(-127, 128, (g, s, n_kv, d), generator=gen,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (_scales((g, s, n_kv), gen, dev) for _ in range(2))
+        ks[dead] = float('nan')
+        vs[dead] = float('nan')
+    else:
+        k, v = (torch.randn((g, s, n_kv, d), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        k[dead] = float('nan')
+        v[dead] = float('nan')
+    return q, k, v, off, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bf16', 'int8'])
+@pytest.mark.parametrize('c,h,n_kv,d,s', [
+    (40, 4, 4, 16, 300),
+    (200, 16, 4, 64, 400),
+    (40, 32, 4, 128, 256),
+    (200, 16, 2, 128, 512),
+], ids=['d16-c40-gqa1', 'd64-c200-gqa4', 'd128-c40-gqa8',
+        'd128-c200-gqa8'])
+def test_chunk_prefill_tensor_core_edges(cuda, dtype, c, h, n_kv, d, s):
+    """The bf16 q route (tensor cores) on bf16 and int8 caches at its
+    edges: C off the 64-row tile, rows whose frontier falls inside a
+    key tile, at a tile edge and at the cache end, NaN past every
+    frontier."""
+    args = _chunk_edge_inputs(cuda, c, h, n_kv, d, s, dtype, c + d)
+    _build.reset_launches()
+    got = tfa.chunk_prefill_attention(*args)
+    want = tfa.chunk_attention_reference(*args)
+    torch.cuda.synchronize()
+    want_launches = {tfa.KERNEL: 1}
+    if dtype == 'int8':
+        want_launches[tfa.KERNEL + '.int8'] = 1
+    assert dict(_build.LAUNCHES) == want_launches
+    assert torch.isfinite(got.float()).all()
+    _assert_within_bar(got, want)
+
+
 def _verify_inputs(dev, b, vq, h, n_kv, d, s, seg, dtype, gen):
     """Verify-kernel inputs: an inactive row (dmask all false), a
     recycled row with only a short prefix live, rejected-candidate holes
@@ -206,6 +260,20 @@ def test_kernels_reject_what_they_do_not_take(cuda):
         tfa.chunk_prefill_attention(
             torch.zeros((1, 4, 2, 128), dtype=torch.float16, device=cuda),
             kc, kc, torch.zeros((1,), dtype=torch.int32, device=cuda))
+    # The bf16 chunk kernel takes head_dim in FLASH_HEAD_DIMS only; the
+    # f32 one takes any head_dim up to 128.
+    off = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    k40 = torch.zeros((1, 100, 2, 40), dtype=torch.bfloat16, device=cuda)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match='head_dim'):
+        tfa.chunk_prefill_attention(
+            torch.zeros((1, 4, 2, 40), dtype=torch.bfloat16, device=cuda),
+            k40, k40, off)
+    assert not _build.LAUNCHES
+    tfa.chunk_prefill_attention(
+        torch.zeros((1, 4, 2, 40), device=cuda), k40.float(), k40.float(),
+        off)
+    assert _build.LAUNCHES[tfa.KERNEL + '.f32'] == 1
 
 
 def _flash_inputs(dev, b, sq, sk, h, d, dt, seed):
@@ -265,16 +333,24 @@ def test_flash_kernels_match_plain(cuda, b, sq, sk, h, d, dtype, causal):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', ['f32', 'bf16'])
 def test_flash_launches_count_their_route(cuda, dtype):
-    """The input dtype picks the route: bf16 launches count no .f32
-    entry, f32 launches count every one under .f32 as well."""
+    """The input dtype picks the route of the flash kernels and the
+    chunk kernel: bf16 launches count no .f32 entry, f32 launches count
+    every one under .f32 as well."""
     dt = torch.float32 if dtype == 'f32' else torch.bfloat16
     xs = [x.requires_grad_(True)
           for x in _flash_inputs(cuda, 1, 64, 64, 2, 64, dt, 1)[:3]]
+    q, k = _flash_inputs(cuda, 2, 48, 160, 2, 64, dt, 5)[:2]
     _build.reset_launches()
     o = tfa.flash_attention(*xs)
     torch.autograd.grad(o.float().sum(), xs)
+    tfa.chunk_prefill_attention(
+        q, k, k, torch.tensor([0, 100], dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == _flash_launches(dtype == 'f32')
+    want = _flash_launches(dtype == 'f32')
+    want[tfa.KERNEL] = 1
+    if dtype == 'f32':
+        want[tfa.KERNEL + '.f32'] = 1
+    assert dict(_build.LAUNCHES) == want
 
 
 @pytest.mark.gpu
