@@ -16,12 +16,15 @@ Phases (any failure exits 1 and prints no result line):
    function's tensor-core instructions in its SASS (``cuobjdump -sass``
    split at its ``Function :`` headers; HGMMA is wgmma, HMMA mma.sync),
    one line per function; every instantiation of the bf16 kernels of
-   K4, K5a, K5b and K2 must hold HGMMA.
+   K1, K2, K3, K4, K5a and K5b must hold HGMMA.
 2. K1, paged GQA decode, against its plain PyTorch version at
    Llama-3.1-8B decode shapes (B 8, S 1024, 8 kv heads, 4 query heads
    each, head_dim 128, page 128): ragged row bounds, dmask holes, an
    empty row, num_pages below the cache's pages, NaN wherever nothing
-   may be read; bf16 and int8 caches.
+   may be read; f32 (the CUDA-core route), bf16 and int8 caches (the
+   split-KV tensor-core route), each launch counting its route; then
+   the published max_seq 8192 (rows live up to about 8,000 columns),
+   bf16.
 3. K2, chunked-prefill attention, against its plain version: first
    the bf16 q route (tensor cores) on bf16 and int8 caches at its edges
    (head_dim 16, 64 and 128; C 40 and 200; GQA 1, 4 and 8; rows at
@@ -41,7 +44,10 @@ Phases (any failure exits 1 and prints no result line):
    Llama-3.1-8B serving shapes with spec_k 4 (B 8, V 5, 32/8 heads,
    head_dim 128, S 1024, the segment at column 700, n_cols 768): an
    inactive row, a recycled row, rejected-candidate holes, NaN in every
-   column no query may attend; f32, bf16 and int8 under the same bars.
+   column no query may attend; f32, bf16 and int8 under the same bars,
+   each launch counting its route; segments wider than one 64-row tile
+   (4 x 17 = 68 and 8 x 17 = 136 query rows per kv head) in f32 and
+   bf16; the published max_seq 8192 (segment at column 8000), bf16.
 4. Times on the card: each kernel, its plain version, one PyTorch
    call computing the same function (scaled_dot_product_attention
    with an explicit mask; the port never calls it) and the least time
@@ -71,8 +77,9 @@ Phases (any failure exits 1 and prints no result line):
    phase 7. 6b: speculation on the same model and prompts — oracle,
    garbage and prompt-lookup drafts — must give the oracle's tokens and
    the spec-off engine's; an int8-KV spec pass must run K3's int8
-   branch. Every K2 launch of phases 6 and 6b (f32) counts under
-   ``chunk_prefill.f32``.
+   branch; spec_k 16 (4 x 17 = 68 query rows per kv head, wider than
+   one 64-row tile) must give the same tokens. Every K1, K2 and K3
+   launch of phases 6 and 6b (f32) counts under its ``.f32`` entry.
 7. K4 (flash forward), K5a (flash dQ) and K5b (flash dK/dV) against
    their plain versions (the backward on the kernel's own o and lse),
    on both routes: f32 (CUDA-core kernels) at S 256 causal and not,
@@ -199,25 +206,31 @@ def compare(got, want, bf16_bar=True):
 # ------------------------------------------------------------------ K1
 
 
-def decode_inputs(torch, dev, quant, seed):
+def decode_inputs(torch, dev, kind, seed, long=False):
     """Phase-2 inputs: ragged bounds, holes, an empty row, NaN wherever
     the kernel may not read (past num_pages, past each row's bound, in
-    masked slots)."""
+    masked slots). ``long``: the published max_seq 8192, every row live
+    up to about 8,000 columns."""
     b, s, n_kv, rep, hd, page, num_pages = 8, 1024, 8, 4, 128, 128, 6
+    bounds = [0, 1, 127, 128, 129, 515, 700, 768]
+    holes = ((5, 200, 260), (7, 513, 530))  # a hole; the prompt/decode gap
+    if long:
+        s, num_pages = 8192, 64
+        bounds = [8000, 7937, 7990, 7801, 8100, 7700, 7999, 8064]
+        holes = ((1, 3000, 3050), (5, 4000, 4200))
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, n_kv * rep, hd), generator=g, device=dev)
-    q = q.to(torch.bfloat16)
-    bounds = torch.tensor([0, 1, 127, 128, 129, 515, 700, 768],
-                          dtype=torch.int32, device=dev)
+    qdt = torch.float32 if kind == 'f32' else torch.bfloat16
+    q = torch.randn((b, n_kv * rep, hd), generator=g, device=dev).to(qdt)
+    bounds = torch.tensor(bounds, dtype=torch.int32, device=dev)
     pos = torch.arange(s, device=dev)[None, :]
     valid = pos < bounds[:, None]
-    valid[5, 200:260] = False            # a hole inside the live region
-    valid[7, 513:530] = False            # the prompt/decode gap
+    for row, start, stop in holes:
+        valid[row, start:stop] = False
     live_end = torch.clamp((bounds + page - 1) // page * page,
                            max=num_pages * page)
     readable = valid & (pos < live_end[:, None])
     ks = vs = None
-    if quant:
+    if kind == 'int8':
         kc = torch.randint(-127, 128, (b, s, n_kv, hd), generator=g,
                            device=dev, dtype=torch.int8)
         vc = torch.randint(-127, 128, (b, s, n_kv, hd), generator=g,
@@ -229,18 +242,23 @@ def decode_inputs(torch, dev, quant, seed):
         ks[~readable] = float('nan')     # int8 holds no NaN: poison scales
         vs[~readable] = float('nan')
     else:
-        kc = torch.randn((b, s, n_kv, hd), generator=g,
-                         device=dev).to(torch.bfloat16)
-        vc = torch.randn((b, s, n_kv, hd), generator=g,
-                         device=dev).to(torch.bfloat16)
+        kc = torch.randn((b, s, n_kv, hd), generator=g, device=dev).to(qdt)
+        vc = torch.randn((b, s, n_kv, hd), generator=g, device=dev).to(qdt)
         kc[~readable] = float('nan')
         vc[~readable] = float('nan')
-    k_self = torch.randn((b, n_kv, hd), generator=g,
-                         device=dev).to(torch.bfloat16)
-    v_self = torch.randn((b, n_kv, hd), generator=g,
-                         device=dev).to(torch.bfloat16)
+    k_self = torch.randn((b, n_kv, hd), generator=g, device=dev).to(qdt)
+    v_self = torch.randn((b, n_kv, hd), generator=g, device=dev).to(qdt)
     args = (q, kc, vc, valid, bounds, k_self, v_self, ks, vs)
     return args, dict(page=page, num_pages=num_pages), readable
+
+
+def route_launches(name, kind):
+    """The launch counts one call of kernel ``name`` must leave: a f32 q
+    counts under ``<name>.f32`` as well, an int8 cache ``<name>.int8``."""
+    want = {name: 1}
+    if kind != 'bf16':
+        want[f'{name}.{kind}'] = 1
+    return want
 
 
 def decode_cost(args, kw, readable):
@@ -264,45 +282,73 @@ def decode_cost(args, kw, readable):
 
 
 def phase_decode(torch, dev, seed, report):
+    from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import decode_attention as da
     entry = {'name': 'paged_decode', 'route': 'cuda',
              'source': 'skypilot_tpu_torch/ops/csrc/paged_decode.cu',
-             'replaces': 'skypilot_tpu/ops/decode_attention.py:116'}
-    for quant in (False, True):
-        tag = 'int8' if quant else 'bf16'
-        args, kw, readable = decode_inputs(torch, dev, quant, seed)
+             'replaces': 'skypilot_tpu/ops/decode_attention.py:116',
+             'products': 'bf16 wgmma, split-KV, bf16 and int8 caches (f32 '
+             'route: f32 CUDA cores)'}
+    for kind in ('f32', 'int8', 'bf16', 'long'):
+        args, kw, readable = decode_inputs(
+            torch, dev, 'bf16' if kind == 'long' else kind, seed,
+            long=kind == 'long')
+        _build.reset_launches()
         got = da.paged_gqa_decode_attention(*args, **kw)
+        launches = dict(_build.LAUNCHES)
         want = da.paged_decode_reference(*args, **kw)
         torch.cuda.synchronize()
-        err, ok = compare(got, want)
+        err, ok = compare(got, want, bf16_bar=kind != 'f32')
         finite = bool(torch.isfinite(got.float()).all())
         # The empty row (bound 0) attends to itself alone.
-        self_err, self_ok = compare(got[0].view(8, -1, 128),
-                                    args[6][0][:, None, :].expand(8, 4, 128))
-        log(f'K1 {tag}: max_abs_err {err:.3g} (within bar: {ok}), '
-            f'empty-row self err {self_err:.3g}, finite {finite}')
+        self_ok = True
+        if kind != 'long':
+            self_err, self_ok = compare(
+                got[0].view(8, -1, 128),
+                args[6][0][:, None, :].expand(8, 4, 128),
+                bf16_bar=kind != 'f32')
+        log(f'K1 {kind}: max_abs_err {err:.3g} (within bar: {ok}), '
+            f'empty row equals its own value: {self_ok}, finite {finite}, '
+            f'launches {launches}')
+        route = route_launches('paged_decode',
+                               'bf16' if kind == 'long' else kind)
+        check(launches == route, f'K1 {kind}: launches {launches}, want '
+              f'{route}')
         check(finite and ok and self_ok,
-              f'K1 {tag} disagrees with its plain version')
+              f'K1 {kind} disagrees with its plain version')
+        if kind == 'f32':
+            entry['f32_max_abs_err'] = err
+            continue
         nbytes, ops = decode_cost(args, kw, readable)
         sets = copies_of(args, nbytes)
         ms = time_ms(lambda *a: da.paged_gqa_decode_attention(*a, **kw),
                      sets)
         plain_ms = time_ms(lambda *a: da.paged_decode_reference(*a, **kw),
-                           sets, iters=10)
+                           sets, iters=5 if kind == 'long' else 10)
         bound_ms, bound_by = bound(nbytes, ops,
-                                   'int8' if quant else 'bfloat16')
-        if quant:
+                                   'int8' if kind == 'int8' else 'bfloat16')
+        if kind == 'int8':
             entry.update(int8_max_abs_err=err, int8_ms=ms,
                          int8_plain_ms=plain_ms, int8_bound_ms=bound_ms)
-            continue
-        entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=decode_library_ms(torch, args, kw))
+        elif kind == 'long':
+            entry.update(long_max_abs_err=err, long_ms=ms,
+                         long_plain_ms=plain_ms, long_bound_ms=bound_ms,
+                         long_library_ms=decode_library_ms(torch, args, kw),
+                         long_shape='B 8, S 8192, rows live to 7700-8100, '
+                         '32/8 heads, D 128, bf16')
+        else:
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=decode_library_ms(torch, args, kw))
         del sets
     log(f'K1 times (ms): kernel {entry["ms"]:.4f}, plain '
         f'{entry["plain_ms"]:.4f}, library {entry["library_ms"]:.4f}, '
         f'bound {entry["bound_ms"]:.4f} ({entry["bound_by"]}); int8 '
-        f'kernel {entry["int8_ms"]:.4f}')
+        f'kernel {entry["int8_ms"]:.4f}, bound '
+        f'{entry["int8_bound_ms"]:.4f}; S 8192: kernel '
+        f'{entry["long_ms"]:.4f}, plain {entry["long_plain_ms"]:.4f}, '
+        f'library {entry["long_library_ms"]:.4f}, bound '
+        f'{entry["long_bound_ms"]:.4f}')
     report.append(entry)
 
 
@@ -437,9 +483,7 @@ def chunk_check(torch, fa, args, kind, tag):
     finite = bool(torch.isfinite(got.float()).all())
     log(f'K2 {kind} {tag}: max_abs_err {err:.3g} (within bar: {ok}), '
         f'finite {finite}')
-    route = {'chunk_prefill': 1}
-    if kind != 'bf16':
-        route[f'chunk_prefill.{kind}'] = 1
+    route = route_launches('chunk_prefill', kind)
     check(launches == route, f'K2 {kind} {tag}: launches {launches}, want '
           f'{route}')
     check(finite and ok, f'K2 {kind} {tag} disagrees with its plain version')
@@ -502,16 +546,19 @@ def chunk_library_ms(torch, args):
 # ------------------------------------------------------------------ K3
 
 
-def verify_inputs(torch, dev, kind, seed):
+def verify_inputs(torch, dev, kind, seed, shape=None):
     """Phase-3b inputs at Llama-3.1-8B serving shapes with spec_k 4 (B 8,
     V 5, 32/8 heads, head_dim 128, S 1024, page 128): the segment at
     column 700 (188 decode steps past a 512-token prompt region), n_cols
     768 (6 pages). Row 0 is inactive (dmask all false), row 1 a recycled
     row with only a 40-token prefix live; the others have prompts of
     100-512 tokens and decode columns with rejected-candidate holes
-    (each earlier 5-column verify tick kept its first 1-5 columns). NaN
-    sits in every column no query may attend (in the scales for int8)."""
+    (each earlier V-column verify tick kept its first 1-V columns). NaN
+    sits in every column no query may attend (in the scales for int8).
+    ``shape`` (V, H, n_kv, S, seg, n_cols) replaces the defaults."""
     b, vq, h, n_kv, d, s, seg, n_cols = 8, 5, 32, 8, 128, 1024, 700, 768
+    if shape is not None:
+        vq, h, n_kv, s, seg, n_cols = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     qdt = torch.float32 if kind == 'f32' else torch.bfloat16
     q = torch.randn((b, vq, h, d), generator=gen, device=dev).to(qdt)
@@ -544,6 +591,16 @@ def verify_inputs(torch, dev, kind, seed):
     return (q, k, v, valid, seg, ks, vs), n_cols
 
 
+# K3 segments wider than one 64-row tile (V, H, n_kv, S, seg, n_cols):
+# Llama-3.1-8B's 32/8 heads with spec_k 16 (4 x 17 = 68 rows), and 32/4
+# heads with spec_k 16 (8 x 17 = 136 rows: two bf16 row chunks, three
+# f32 row groups).
+VERIFY_WIDE = ((17, 32, 8, 1024, 700, 768), (17, 32, 4, 1024, 700, 768))
+# The published max_seq 8192: the segment at column 8000, every column
+# up to 63 pages readable.
+VERIFY_LONG = (5, 32, 8, 8192, 8000, 8064)
+
+
 def verify_plain(fa, args, n_cols):
     """K3's plain version over the region the kernel is given."""
     q, k, v, valid, seg, ks, vs = args
@@ -571,29 +628,58 @@ def verify_cost(args, n_cols):
     return nbytes, 4 * d * h * attended
 
 
+def verify_check(torch, fa, args, n_cols, kind, tag):
+    """K3 against its plain version; the launch must count its route.
+    Returns the max abs error."""
+    from skypilot_tpu_torch.ops import _build
+    _build.reset_launches()
+    got = fa.verify_attention(*args, n_cols=n_cols)
+    launches = dict(_build.LAUNCHES)
+    want = verify_plain(fa, args, n_cols)
+    torch.cuda.synchronize()
+    err, ok = compare(got, want, bf16_bar=kind != 'f32')
+    finite = bool(torch.isfinite(got.float()).all())
+    # The inactive row's first query attends its own column alone.
+    q, k, v, valid, seg, ks, vs = args
+    rep = q.shape[2] // k.shape[2]
+    own = v[0, seg].float()
+    if vs is not None:
+        own = own * vs[0, seg].float()[:, None]
+    self_err, self_ok = compare(got[0, 0], own.repeat_interleave(rep, 0),
+                                bf16_bar=kind != 'f32')
+    log(f'K3 {kind} {tag}: max_abs_err {err:.3g} (within bar: {ok}), '
+        f'inactive-row self err {self_err:.3g}, finite {finite}, launches '
+        f'{launches}')
+    route = route_launches('verify_attention', kind)
+    check(launches == route, f'K3 {kind} {tag}: launches {launches}, want '
+          f'{route}')
+    check(finite and ok and self_ok,
+          f'K3 {kind} {tag} disagrees with its plain version')
+    return err
+
+
 def phase_verify(torch, dev, seed, report):
     from skypilot_tpu_torch.ops import flash_attention as fa
     entry = {'name': 'verify_attention', 'route': 'cuda',
              'source': 'skypilot_tpu_torch/ops/csrc/verify_attention.cu',
-             'replaces': 'skypilot_tpu/ops/flash_attention.py:750'}
-    for kind in ('f32', 'int8', 'bf16'):
-        args, n_cols = verify_inputs(torch, dev, kind, seed)
-        got = fa.verify_attention(*args, n_cols=n_cols)
-        want = verify_plain(fa, args, n_cols)
-        torch.cuda.synchronize()
-        err, ok = compare(got, want, bf16_bar=kind != 'f32')
-        finite = bool(torch.isfinite(got.float()).all())
-        # The inactive row's first query attends its own column alone.
-        q, k, v, valid, seg, ks, vs = args
-        own = v[0, seg].float()
-        if vs is not None:
-            own = own * vs[0, seg].float()[:, None]
-        self_err, self_ok = compare(got[0, 0], own.repeat_interleave(4, 0),
-                                    bf16_bar=kind != 'f32')
-        log(f'K3 {kind}: max_abs_err {err:.3g} (within bar: {ok}), '
-            f'inactive-row self err {self_err:.3g}, finite {finite}')
-        check(finite and ok and self_ok,
-              f'K3 {kind} disagrees with its plain version')
+             'replaces': 'skypilot_tpu/ops/flash_attention.py:750',
+             'products': 'bf16 wgmma, split-KV, any rep x V rows, bf16 and '
+             'int8 caches (f32 route: f32 CUDA cores)'}
+    wide_err = 0.0
+    for shape in VERIFY_WIDE:
+        for kind in ('f32', 'bf16'):
+            args, n_cols = verify_inputs(torch, dev, kind, seed, shape)
+            rows = shape[1] // shape[2] * shape[0]
+            wide_err = max(wide_err, verify_check(
+                torch, fa, args, n_cols, kind, f'{rows} rows'))
+    entry['wide_max_abs_err'] = wide_err
+    for kind in ('f32', 'int8', 'bf16', 'long'):
+        args, n_cols = verify_inputs(
+            torch, dev, 'bf16' if kind == 'long' else kind, seed,
+            VERIFY_LONG if kind == 'long' else None)
+        err = verify_check(torch, fa, args, n_cols,
+                           'bf16' if kind == 'long' else kind,
+                           'S 8192' if kind == 'long' else '8B shapes')
         if kind == 'f32':
             entry['f32_max_abs_err'] = err
             continue
@@ -601,21 +687,32 @@ def phase_verify(torch, dev, seed, report):
         sets = copies_of(args, nbytes)
         ms = time_ms(lambda *a: fa.verify_attention(*a, n_cols=n_cols), sets)
         plain_ms = time_ms(lambda *a: verify_plain(fa, a, n_cols), sets,
-                           iters=10)
+                           iters=5 if kind == 'long' else 10)
         bound_ms, bound_by = bound(nbytes, ops,
                                    'int8' if kind == 'int8' else 'bfloat16')
         if kind == 'int8':
             entry.update(int8_max_abs_err=err, int8_ms=ms,
                          int8_plain_ms=plain_ms, int8_bound_ms=bound_ms)
-            continue
-        entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=verify_library_ms(torch, args, n_cols))
+        elif kind == 'long':
+            entry.update(long_max_abs_err=err, long_ms=ms,
+                         long_plain_ms=plain_ms, long_bound_ms=bound_ms,
+                         long_library_ms=verify_library_ms(torch, args,
+                                                           n_cols),
+                         long_shape='B 8, V 5, S 8192, segment at 8000, '
+                         'n_cols 8064, 32/8 heads, D 128, bf16')
+        else:
+            entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=verify_library_ms(torch, args, n_cols))
         del sets
     log(f'K3 times (ms): kernel {entry["ms"]:.4f}, plain '
         f'{entry["plain_ms"]:.4f}, library {entry["library_ms"]:.4f}, '
         f'bound {entry["bound_ms"]:.4f} ({entry["bound_by"]}); int8 '
-        f'kernel {entry["int8_ms"]:.4f}')
+        f'kernel {entry["int8_ms"]:.4f}, bound '
+        f'{entry["int8_bound_ms"]:.4f}; S 8192: kernel '
+        f'{entry["long_ms"]:.4f}, plain {entry["long_plain_ms"]:.4f}, '
+        f'library {entry["long_library_ms"]:.4f}, bound '
+        f'{entry["long_bound_ms"]:.4f}')
     report.append(entry)
 
 
@@ -731,8 +828,9 @@ def phase_main_path(torch, dev, seed, card, profile_dir=None):
     check(launches.get('chunk_prefill', 0) == ticks * cfg.n_layers > 0,
           f'K2 launched {launches.get("chunk_prefill", 0)} times, want '
           f'{ticks} x {cfg.n_layers}')
-    check(launches.get('chunk_prefill.f32', 0) == 0,
-          f'bf16 serving launched K2 on the f32 route: {launches}')
+    check(launches.get('chunk_prefill.f32', 0) == 0 and
+          launches.get('paged_decode.f32', 0) == 0,
+          f'bf16 serving launched K1 or K2 on the f32 route: {launches}')
     if profile_dir:
         again = [Request(('profiled', i), p, max_new=32)
                  for i, p in enumerate(prompts)]
@@ -800,11 +898,11 @@ def phase_spec_path(torch, dev, seed, card, cfg, params, profile_dir=None):
         n_l = cfg.n_layers
         check(launches.get('paged_decode', 0) == steps * n_l and
               launches.get('chunk_prefill', 0) == ticks * n_l > 0 and
-              launches.get('chunk_prefill.f32', 0) == 0 and
-              launches.get('verify_attention', 0) == verify * n_l,
+              launches.get('verify_attention', 0) == verify * n_l and
+              not any(k.endswith('.f32') for k in launches),
               f'spec path ({mode}): launches {launches}, want K1 {steps} x '
-              f'{n_l}, K2 {ticks} x {n_l} (none on the f32 route), K3 '
-              f'{verify} x {n_l}')
+              f'{n_l}, K2 {ticks} x {n_l}, K3 {verify} x {n_l}, none on '
+              'the f32 route')
         check(mode == 'off' or verify > 0,
               f'spec path ({mode}): no verify tick ran')
         if mode == 'organic':
@@ -933,9 +1031,11 @@ def phase_parity(torch, dev, seed):
         check(all(len(g) == 16 for g in got),
               f'kv_quant={kv_quant}: a request did not finish')
         check(launches.get('chunk_prefill.f32', 0) ==
-              launches.get('chunk_prefill', 0) > 0,
-              f'kv_quant={kv_quant}: a f32 K2 launch missed the f32 route: '
-              f'{launches}')
+              launches.get('chunk_prefill', 0) > 0 and
+              launches.get('paged_decode.f32', 0) ==
+              launches.get('paged_decode', 0) > 0,
+              f'kv_quant={kv_quant}: a f32 K1 or K2 launch missed the f32 '
+              f'route: {launches}')
         if kv_quant:
             check(launches.get('paged_decode.int8', 0) > 0 and
                   launches.get('chunk_prefill.int8', 0) > 0,
@@ -953,7 +1053,10 @@ def phase_spec_parity(torch, dev, parity):
     tokens must equal ``reference_generate``'s and the spec-off
     engine's, and the oracle and garbage runs must verify through K3.
     Then an int8-KV spec pass (oracle drafts) must finish every request
-    through K3's int8 branch."""
+    through K3's int8 branch. Last, spec_k 16 on the same 32/8 heads:
+    4 x 17 = 68 query rows per kv head, more than one 64-row tile; its
+    tokens must equal the reference's and spec-off's, through K3 on its
+    f32 route."""
     from skypilot_tpu_torch.models.serving_engine import (Request,
                                                           ServingEngine)
     from skypilot_tpu_torch.ops import _build
@@ -962,15 +1065,16 @@ def phase_spec_parity(torch, dev, parity):
     prompts = [toks[i, :n].tolist() for i, n in enumerate(lengths)]
     oracle = oracle_lookup(prompts, want)
     garbage = (lambda chain, k: [(int(chain[-1]) + 7) % cfg.vocab_size] * k)
-    for name, lookup, kv_quant in (('oracle', oracle, False),
-                                   ('garbage', garbage, False),
-                                   ('organic', None, False),
-                                   ('int8 oracle', oracle, True)):
+    for name, lookup, kv_quant, spec_k in (
+            ('oracle', oracle, False, 4), ('garbage', garbage, False, 4),
+            ('organic', None, False, 4), ('int8 oracle', oracle, True, 4),
+            ('wide oracle, spec_k 16', oracle, False, 16)):
         eng = ServingEngine(params, cfg, batch_size=4, max_prompt=256,
                             max_seq=512, prefill_chunk=128,
                             prefill_budget=256, decode_chunk=8,
-                            kv_quant=kv_quant, spec_decode=True, spec_k=4,
-                            device=dev)
+                            kv_quant=kv_quant, spec_decode=True,
+                            spec_k=spec_k, device=dev)
+        check(eng.spec_decode, f'spec parity ({name}): speculation off')
         if lookup is not None:
             eng._lookup = lookup
         _build.reset_launches()
@@ -990,9 +1094,11 @@ def phase_spec_parity(torch, dev, parity):
               f'spec parity ({name}): a f32 K2 launch missed the f32 '
               f'route: {launches}')
         k3 = launches.get('verify_attention', 0)
-        check(k3 == eng.spec_ticks * cfg.n_layers,
+        check(k3 == eng.spec_ticks * cfg.n_layers ==
+              launches.get('verify_attention.f32', 0),
               f'spec parity ({name}): K3 launched {k3} times for '
-              f'{eng.spec_ticks} verify ticks')
+              f'{eng.spec_ticks} verify ticks, all on the f32 route: '
+              f'{launches}')
         if kv_quant:
             check(launches.get('verify_attention.int8', 0) == k3 > 0,
                   'the int8 spec pass did not run K3\'s int8 branch')
@@ -1283,8 +1389,10 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
 
 
 # Kernel functions whose SASS must hold HGMMA (wgmma): every
-# instantiation of the bf16 routes of K4, K5a, K5b and K2.
+# instantiation of the bf16 routes of K1, K2, K3, K4, K5a and K5b.
 TENSOR_CORE_KERNELS = {
+    'paged_decode': ('paged_decode_tc_kernel',),
+    'verify_attention': ('verify_attention_tc_kernel',),
     'flash_fwd': ('flash_fwd_tc_kernel',),
     'flash_bwd': ('flash_dq_tc_kernel', 'flash_dkv_tc_kernel'),
     'chunk_prefill': ('chunk_prefill_tc_kernel',),
@@ -1319,8 +1427,9 @@ def demangled(names, tool_dir):
 def sass_counts():
     """Tensor-core instructions in each kernel function's SASS: HGMMA
     (wgmma) and HMMA (mma.sync), one line per function. Every
-    instantiation of the bf16 kernels of flash_fwd (K4), flash_bwd (K5a
-    and K5b) and chunk_prefill (K2) must hold HGMMA."""
+    instantiation of the bf16 kernels of paged_decode (K1),
+    chunk_prefill (K2), verify_attention (K3), flash_fwd (K4) and
+    flash_bwd (K5a and K5b) must hold HGMMA."""
     from skypilot_tpu_torch.ops import _build
     tool_dir = os.path.dirname(_build._nvcc())
     tool = os.path.join(tool_dir, 'cuobjdump')

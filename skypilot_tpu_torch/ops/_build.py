@@ -124,6 +124,22 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_functions: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``symbol`` of kernel library ``name``, its
+    argument types set once (ctypes' setter costs host time on every
+    call otherwise) and its result an int (a CUDA error code)."""
+    fn = _functions.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[symbol] = fn
+    return fn
+
+
 def check(status: int, name: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if status != 0:

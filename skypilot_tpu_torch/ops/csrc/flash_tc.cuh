@@ -1,6 +1,7 @@
 // Tensor-core tile layer of the bf16 attention kernels: flash_fwd.cu's
-// K4, flash_bwd.cu's K5a and K5b and chunk_prefill.cu's K2, each on its
-// bf16 route.
+// K4, flash_bwd.cu's K5a and K5b, chunk_prefill.cu's K2, and (through
+// split_kv.cuh) paged_decode.cu's K1 and verify_attention.cu's K3, each
+// on its bf16 route.
 //
 // Tiles: R rows x D head_dim columns of one head of a [B, S, H, D] bf16
 // tensor (load_tile), or of any bf16 matrix with a row stride and a
@@ -133,6 +134,30 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
   }
 }
 
+// Rows [row0, row0 + R) of two bf16 matrices with one row stride (a
+// kv head's K and V: row s at k + s * stride and v + s * stride) into
+// the tiles at `dst_k` and `dst_v`, as load_rows does, but row s loads
+// only where live(s) holds (evaluated once per row and thread for
+// both): the other rows fill with zeros and are never read, so a dead
+// slot anywhere in the tile may hold anything. Thread `tid` of
+// `nthreads` takes units tid, tid + nthreads, ... (any block size).
+template <int D, int R, typename Live>
+__device__ __forceinline__ void load_kv_rows_if(
+    uint32_t dst_k, uint32_t dst_v, const __nv_bfloat16* k,
+    const __nv_bfloat16* v, int row0, size_t stride, int tid, int nthreads,
+    const Live& live) {
+  constexpr int kUnits = D / 8;
+  for (int i = tid; i < R * kUnits; i += nthreads) {
+    const int r = i / kUnits;
+    const int u = i - r * kUnits;
+    const int s = row0 + r;
+    const bool ok = live(s);
+    const size_t off = (ok ? (size_t)s : 0) * stride + u * 8;
+    cp_async16(dst_k + unit_offset<R>(r, u), k + off, ok);
+    cp_async16(dst_v + unit_offset<R>(r, u), v + off, ok);
+  }
+}
+
 // int8 rows into a bf16 tile. cp.async cannot convert, so the rows come
 // through registers in two steps: load() starts 16-byte global loads of
 // rows [row0, row0 + R) (zeros at or past `end`, which are never read),
@@ -157,6 +182,23 @@ struct Int8Rows {
       const int s = row0 + r;
       v[p] = make_uint4(0, 0, 0, 0);
       if (i < R * kUnits && s < end)
+        v[p] = *reinterpret_cast<const uint4*>(src + s * stride +
+                                               (i - r * kUnits) * 16);
+    }
+  }
+
+  // As load(), but row s loads only where live(s) holds (zeros
+  // elsewhere, never read).
+  template <typename Live>
+  __device__ __forceinline__ void load_if(const int8_t* src, int row0,
+                                          size_t stride, const Live& live) {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      const int i = threadIdx.x + p * kThreads;
+      const int r = i / kUnits;
+      const int s = row0 + r;
+      v[p] = make_uint4(0, 0, 0, 0);
+      if (i < R * kUnits && live(s))
         v[p] = *reinterpret_cast<const uint4*>(src + s * stride +
                                                (i - r * kUnits) * 16);
     }
@@ -327,6 +369,30 @@ __device__ __forceinline__ void wgmma_rs(
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// As wgmma_rs (A from registers) for N = 64, but B K-major (not
+// transposed): S = Q K^T with Q held as register fragments.
+__device__ __forceinline__ void wgmma_rs_kmajor(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),

@@ -9,28 +9,41 @@
 //
 // What bounds it on an H100: bytes. Per call it must read each live K/V
 // slot once (2 * n_kv * hd elements per slot) and does 2 * rep
-// operations per element read (8 at Llama-3.1-8B's rep 4) — far below
-// the ~295 per byte the card needs to be compute-bound. The design
-// therefore reads only what it must:
-//   * one block per (kv head, row); all `rep` query heads of the GQA
-//     group share every K/V tile staged in shared memory, so a slot is
-//     read from device memory exactly once;
-//   * the tile loop stops at min(num_pages, ceil(row_bound / page)) *
-//     page: pages past a row's bound and past the dispatched page count
-//     are never read;
-//   * slots that dmask marks dead are never loaded either (zeros are
-//     staged instead), so NaN garbage in masked slots cannot reach the
-//     accumulator, and masked probabilities are zeroed explicitly.
-// Scores, the online softmax and the accumulators are f32.
+// operations per element read (8 at Llama-3.1-8B's rep 4), far below
+// the ~295 per byte the card needs to be compute-bound. Only what must
+// be read is read: the column loop of a row stops at
+// end = min(num_pages, ceil(row_bound / page)) * page, and a slot that
+// dmask marks dead is never loaded (zeros stand in, so NaN garbage there
+// cannot reach the accumulator, and its probability is zeroed
+// explicitly). The type of q picks one of two kernels:
 //
-// Known limit, for a later change: at B=8, n_kv=8 the grid is only 64
-// blocks on 132 SMs. Splitting each row's pages across blocks
-// (flash-decoding, with a second pass to merge partial softmaxes) is
-// the redesign that fills the card.
+// bf16 (paged_decode_tc_kernel, bf16 or int8 cache; split_kv.cuh) fills
+// the card and keeps the loads in flight: the grid is (n_split, n_kv,
+// B), n_split chosen by the caller so that the blocks cover the SMs at
+// least twice (at B 8 x n_kv 8 one block per (kv head, row) left half
+// of the 132 SMs idle), each block taking the n_split-th share of its
+// row's live 64-column tiles. The rep query heads of a GQA group are
+// padded to one 64-row warpgroup tile, so each K/V tile is read from
+// device memory once and both products run on wgmma (the padding is
+// free: 64 operations per byte is still under the ridge), the query
+// fragments held in registers; tiles t + 1 and t + 2 are in flight
+// (cp.async; int8: t + 1, through registers) while tile t's products
+// run. Each block writes its partial (m, l, acc) in f32; the last block
+// of a (kv head, row) to arrive merges the partials in split order,
+// with the self term as one more online-softmax step, in the same
+// launch (its arrival counter is reset by the merging block, so nothing
+// is cleared per call).
+//
+// f32 (paged_decode_kernel) keeps full-f32 math on the CUDA cores, so
+// the greedy-exact parity route holds its 1e-4 bar: one block per
+// (kv head, row), all rep heads of the group sharing each staged tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
@@ -51,10 +64,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -69,7 +78,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// T: query/output/self type (float or bf16). KV: cache type (T or int8).
+// T: query/output/self type (float: a bf16 q takes
+// paged_decode_tc_kernel). KV: cache type (T or int8).
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q,                    // [B, n_kv * rep, hd]
@@ -255,53 +265,168 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T, typename KV>
-int launch(const void* q, const void* kc, const void* vc, const void* valid,
-           const void* row_bound, const void* k_scale, const void* v_scale,
-           const void* k_self, const void* v_self, void* out, int B, int S,
-           int n_kv, int rep, int hd, int page, int num_pages, float scale,
-           cudaStream_t stream) {
+// ---------------------------------------------------------- bf16 route
+
+// kInt8: the cache is int8 with per-vector scales; else bf16 like q.
+// Grid (n_split, n_kv, B), one warpgroup per block. part_ml
+// [B * n_kv, n_split, rep, 2] and part_acc [B * n_kv, n_split, rep, hd]
+// (f32) take the partials; counters [B * n_kv] are 0 at launch and
+// left 0.
+template <int D, bool kInt8>
+__global__ void __launch_bounds__(split_kv::kWg) paged_decode_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,        // [B, n_kv * rep, D]
+    const void* __restrict__ kc,                // [B, S, n_kv, D]
+    const void* __restrict__ vc,                // [B, S, n_kv, D]
+    const bool* __restrict__ valid,             // [B, S]
+    const int* __restrict__ row_bound,          // [B]
+    const __nv_bfloat16* __restrict__ k_scale,  // [B, S, n_kv] (int8)
+    const __nv_bfloat16* __restrict__ v_scale,  // [B, S, n_kv] (int8)
+    const __nv_bfloat16* __restrict__ k_self,   // [B, n_kv, D] or null
+    const __nv_bfloat16* __restrict__ v_self,   // [B, n_kv, D] or null
+    __nv_bfloat16* __restrict__ out,            // [B, n_kv * rep * D]
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    int* __restrict__ counters, int S, int n_kv, int rep, int page,
+    int num_pages, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw +
+      ((1024 - (flash_tc::smem_u32(smem_raw) & 1023)) & 1023);
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int slot = b * n_kv + kh;
+  int row_pages = (row_bound[b] + page - 1) / page;
+  row_pages = max(0, min(row_pages, num_pages));
+  const int end = min(row_pages * page, S);
+  const int n_tiles = (end + split_kv::kBk - 1) / split_kv::kBk;
+  const float scale2 = scale * flash_tc::kLog2e;  // scores in log2 units
+  const __nv_bfloat16* qg = q + ((size_t)b * n_kv + kh) * rep * D;
+  const bool* vrow = valid + (size_t)b * S;
+  const auto q_row = [&](int r) { return qg + (size_t)r * D; };
+  // Every row (query head) attends every live column: flag 1.
+  const auto flag = [&](int c) { return int(c < end && vrow[c]); };
+  const auto row_lim = [](int) { return 0; };
+  float* ml = part_ml + (size_t)slot * n_split * rep * 2;
+  float* acc = part_acc + (size_t)slot * n_split * rep * D;
+  split_kv::attend<D, kInt8>(
+      smem, q_row, rep, kc, vc, k_scale, v_scale,
+      ((size_t)b * S * n_kv + kh) * D, (size_t)n_kv * D,
+      (size_t)b * S * n_kv + kh, (size_t)n_kv,
+      split_kv::split_begin(n_tiles, split, n_split),
+      split_kv::split_begin(n_tiles, split + 1, n_split), scale2, flag,
+      row_lim, ml + (size_t)split * rep * 2, acc + (size_t)split * rep * D);
+  if (!split_kv::arrive_last(counters + slot, n_split)) return;
+
+  // The merging block: the self term's scores, one warp per head.
+  __shared__ float self_s[kMaxRep];
+  const bool has_self = k_self != nullptr;
+  if (has_self) {
+    const int lane = threadIdx.x & 31;
+    const __nv_bfloat16* ks = k_self + (size_t)slot * D;
+    for (int r = threadIdx.x >> 5; r < rep; r += blockDim.x >> 5) {
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32)
+        dot += __bfloat162float(q_row(r)[d]) * __bfloat162float(ks[d]);
+      dot = warp_sum(dot);
+      if (lane == 0) self_s[r] = dot * scale2;
+    }
+    __syncthreads();
+  }
+  __nv_bfloat16* og = out + ((size_t)b * n_kv + kh) * rep * D;
+  split_kv::merge<D>(smem, ml, acc, n_split, rep, rep,
+                     has_self ? self_s : nullptr,
+                     has_self ? v_self + (size_t)slot * D : nullptr,
+                     [&](int r) { return og + (size_t)r * D; });
+}
+
+template <bool kInt8>
+int launch_tc(const void* q, const void* kc, const void* vc,
+              const void* valid, const void* row_bound, const void* k_scale,
+              const void* v_scale, const void* k_self, const void* v_self,
+              void* out, void* part_ml, void* part_acc, void* counters,
+              int B, int S, int n_kv, int rep, int hd, int page,
+              int num_pages, int n_split, float scale, cudaStream_t stream) {
+  return flash::with_head_dim(hd, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const size_t smem = split_kv::smem_bytes(kD, kInt8);
+    auto kernel = paged_decode_tc_kernel<kD, kInt8>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(n_split, n_kv, B), split_kv::kWg, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), kc, vc,
+        static_cast<const bool*>(valid), static_cast<const int*>(row_bound),
+        static_cast<const __nv_bfloat16*>(k_scale),
+        static_cast<const __nv_bfloat16*>(v_scale),
+        static_cast<const __nv_bfloat16*>(k_self),
+        static_cast<const __nv_bfloat16*>(v_self),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_ml),
+        static_cast<float*>(part_acc), static_cast<int*>(counters), S,
+        n_kv, rep, page, num_pages, scale);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+template <typename KV>
+int launch_f32(const void* q, const void* kc, const void* vc,
+               const void* valid, const void* row_bound, const void* k_scale,
+               const void* v_scale, const void* k_self, const void* v_self,
+               void* out, int B, int S, int n_kv, int rep, int hd, int page,
+               int num_pages, float scale, cudaStream_t stream) {
   dim3 grid(n_kv, B);
-  paged_decode_kernel<T, KV><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(kc),
+  paged_decode_kernel<float, KV><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const KV*>(kc),
       static_cast<const KV*>(vc), static_cast<const bool*>(valid),
       static_cast<const int*>(row_bound),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale),
-      static_cast<const T*>(k_self), static_cast<const T*>(v_self),
-      static_cast<T*>(out), S, n_kv, rep, hd, page, num_pages, scale);
+      static_cast<const float*>(k_self), static_cast<const float*>(v_self),
+      static_cast<float*>(out), S, n_kv, rep, hd, page, num_pages, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, self, out; and the cache unless
-// kv_int8). Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core kernel; head_dim up to 128), 1 =
+// bfloat16 (tensor-core split kernel; head_dim a multiple of 16 up to
+// 128, n_split >= 1 blocks per (kv head, row), part_ml/part_acc/counters
+// its f32 partials [B * n_kv * n_split * rep * 2] and
+// [B * n_kv * n_split * rep * hd] and int32 counters [B * n_kv], zero at
+// launch) for q, self and out, and the cache unless kv_int8. Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_decode(const void* q, const void* kc, const void* vc,
                             const void* valid, const void* row_bound,
                             const void* k_scale, const void* v_scale,
                             const void* k_self, const void* v_self,
-                            void* out, int B, int S, int n_kv, int rep,
-                            int hd, int page, int num_pages, float scale,
-                            int dtype, int kv_int8, void* stream) {
-  if (rep < 1 || rep > kMaxRep || hd < 1 || hd > kMaxHd)
+                            void* out, void* part_ml, void* part_acc,
+                            void* counters, int B, int S, int n_kv, int rep,
+                            int hd, int page, int num_pages, int n_split,
+                            float scale, int dtype, int kv_int8,
+                            void* stream) {
+  if (rep < 1 || rep > kMaxRep || hd < 1 || hd > kMaxHd || page < 1 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      (dtype == 1 && (n_split < 1 || part_ml == nullptr ||
+                      part_acc == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && !kv_int8)
-    return launch<float, float>(q, kc, vc, valid, row_bound, k_scale,
-                                v_scale, k_self, v_self, out, B, S, n_kv,
-                                rep, hd, page, num_pages, scale, st);
+    return launch_f32<float>(q, kc, vc, valid, row_bound, k_scale, v_scale,
+                             k_self, v_self, out, B, S, n_kv, rep, hd, page,
+                             num_pages, scale, st);
   if (dtype == 0 && kv_int8)
-    return launch<float, int8_t>(q, kc, vc, valid, row_bound, k_scale,
-                                 v_scale, k_self, v_self, out, B, S, n_kv,
-                                 rep, hd, page, num_pages, scale, st);
+    return launch_f32<int8_t>(q, kc, vc, valid, row_bound, k_scale, v_scale,
+                              k_self, v_self, out, B, S, n_kv, rep, hd, page,
+                              num_pages, scale, st);
   if (dtype == 1 && !kv_int8)
-    return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, kc, vc, valid, row_bound, k_scale, v_scale, k_self, v_self, out,
-        B, S, n_kv, rep, hd, page, num_pages, scale, st);
+    return launch_tc<false>(q, kc, vc, valid, row_bound, k_scale, v_scale,
+                            k_self, v_self, out, part_ml, part_acc, counters,
+                            B, S, n_kv, rep, hd, page, num_pages, n_split,
+                            scale, st);
   if (dtype == 1 && kv_int8)
-    return launch<__nv_bfloat16, int8_t>(
-        q, kc, vc, valid, row_bound, k_scale, v_scale, k_self, v_self, out,
-        B, S, n_kv, rep, hd, page, num_pages, scale, st);
+    return launch_tc<true>(q, kc, vc, valid, row_bound, k_scale, v_scale,
+                           k_self, v_self, out, part_ml, part_acc, counters,
+                           B, S, n_kv, rep, hd, page, num_pages, n_split,
+                           scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

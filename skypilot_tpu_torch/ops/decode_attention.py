@@ -6,7 +6,10 @@ Port of ``skypilot_tpu/ops/decode_attention.py``. The TPU kernel
 hand-written CUDA kernel ``csrc/paged_decode.cu``; ``paged_decode_reference``
 is its plain PyTorch version. ``paged_gqa_decode_attention`` launches
 the kernel for CUDA tensors and runs the plain version for CPU tensors
-— no other switch, no fallback.
+— no other switch, no fallback. The dtype of q picks the kernel's
+route: bf16 runs the split-KV tensor-core kernel (``split_kv``, head_dim
+in ``FLASH_HEAD_DIMS``), f32 the CUDA-core one, counted under
+``paged_decode.f32`` as well.
 
 Semantics (shared by both versions): q [B, n_heads, hd]; kc/vc
 [B, S, n_kv, hd] (bf16/f32, or int8 with per-vector bf16 scales
@@ -25,7 +28,8 @@ from typing import Optional
 
 import torch
 
-from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import _build, split_kv
+from skypilot_tpu_torch.ops.flash_attention import FLASH_HEAD_DIMS
 from skypilot_tpu_torch.utils import env_registry
 
 DEFAULT_PAGE = 128
@@ -119,6 +123,10 @@ def _check_cuda_args(q, kc, vc, valid, row_bound, k_self, v_self, k_scale,
         raise ValueError(f'unsupported shape: rep={rep}, head_dim={hd} '
                          '(kernel takes rep <= 16, head_dim <= 128 and '
                          'rows of a multiple of 16 bytes)')
+    if q.dtype == torch.bfloat16 and hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f'the bf16 decode kernel takes head_dim in '
+                         f'{FLASH_HEAD_DIMS} (16-column wgmma steps), got '
+                         f'{hd}')
     if s % page:
         raise ValueError(f'cache length {s} is not a multiple of the '
                          f'page size {page}')
@@ -157,21 +165,31 @@ def _paged_decode_cuda(q, kc, vc, valid, row_bound, k_self, v_self,
     _check_cuda_args(q, kc, vc, valid, row_bound, k_self, v_self, k_scale,
                      v_scale, page)
     b, s, n_kv, hd = kc.shape
-    lib = _build.load(KERNEL)
-    fn = lib.paged_decode
+    rep = q.shape[1] // n_kv
+    bf16 = q.dtype == torch.bfloat16
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 10 + [I] * 7 + [ctypes.c_float, I, I, P]
-    fn.restype = I
+    fn = _build.function(KERNEL, 'paged_decode',
+                         [P] * 13 + [I] * 8 + [ctypes.c_float, I, I, P])
     out = torch.empty((b, q.shape[1] * hd), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_split, ml, acc, counters = 1, None, None, None
+    if bf16:
+        # Tiles up to the dispatched pages; a row's own bound cuts its
+        # share further inside the kernel.
+        n_tiles = -(-min(num_pages * page, s) // split_kv.TILE)
+        n_split = split_kv.split_count(b * n_kv, n_tiles,
+                                       split_kv.sm_count(q.device))
+        ml, acc, counters = split_kv.workspace(q.device, stream, b * n_kv,
+                                               n_split, rep, hd)
     status = fn(_ptr(q), _ptr(kc), _ptr(vc), _ptr(valid), _ptr(row_bound),
                 _ptr(k_scale), _ptr(v_scale), _ptr(k_self), _ptr(v_self),
-                _ptr(out), b, s, n_kv, q.shape[1] // n_kv, hd, page,
-                num_pages, hd**-0.5, 1 if q.dtype == torch.bfloat16 else 0,
+                _ptr(out), _ptr(ml), _ptr(acc), _ptr(counters), b, s, n_kv,
+                rep, hd, page, num_pages, n_split, hd**-0.5, int(bf16),
                 1 if k_scale is not None else 0, stream)
     _build.check(status, KERNEL)
     _build.LAUNCHES[KERNEL] += 1
+    if not bf16:
+        _build.LAUNCHES[KERNEL + '.f32'] += 1
     if k_scale is not None:
         _build.LAUNCHES[KERNEL + '.int8'] += 1
     return out
@@ -185,8 +203,10 @@ def paged_gqa_decode_attention(q, kc, vc, valid, row_bound,
                                ) -> torch.Tensor:
     """One-position GQA attention against a paged cache (+ self);
     returns [B, n_heads * hd] in q's dtype. CUDA tensors run the
-    hand-written kernel (a page-misaligned cache raises); CPU tensors
-    run ``paged_decode_reference``."""
+    hand-written kernel (a page-misaligned cache raises): a bf16 q the
+    split-KV tensor-core one (head_dim in ``FLASH_HEAD_DIMS``, else
+    ValueError), a f32 q the CUDA-core one. CPU tensors run
+    ``paged_decode_reference``."""
     s = kc.shape[1]
     page = page or default_page()
     total_pages = -(-s // page)

@@ -21,8 +21,10 @@ by the dtype of q, never by failure: bf16 runs K4, K5a, K5b and K2 on
 the tensor cores (``wgmma``, ``csrc/flash_tc.cuh``; P and dS rounded to
 bf16 for the second products; K2's bf16 route takes bf16 and int8
 caches, head_dim in ``FLASH_HEAD_DIMS``), f32 keeps full-f32 products
-on the CUDA cores. A f32 launch also counts under ``<kernel>.f32`` in
-``_build.LAUNCHES``.
+on the CUDA cores. K3 takes its route the same way: bf16 runs the
+split-KV tensor-core kernel (``split_kv``), f32 the CUDA-core one; both
+take any number of query rows. A f32 launch also counts under
+``<kernel>.f32`` in ``_build.LAUNCHES``.
 
 ``_plain_fwd``/``_plain_bwd`` (mirroring the reference's
 ``_xla_fwd``/``_xla_bwd``) are the kernels' plain versions;
@@ -42,7 +44,7 @@ from typing import Optional
 
 import torch
 
-from skypilot_tpu_torch.ops import _build
+from skypilot_tpu_torch.ops import _build, split_kv
 
 _NEG_INF = -1e30
 KERNEL = 'chunk_prefill'
@@ -50,9 +52,6 @@ FWD_KERNEL = 'flash_fwd'
 DQ_KERNEL = 'flash_dq'
 DKV_KERNEL = 'flash_dkv'
 VERIFY_KERNEL = 'verify_attention'
-# Query rows (query heads per kv head x segment tokens) one verify
-# kernel block holds: 20 at Llama-3.1-8B with spec_k 4.
-VERIFY_MAX_ROWS = 64
 # head_dim values the flash kernels (and the bf16 chunk kernel) are built
 # for: multiples of 16 up to 128 (a wgmma k-step is 16 columns; the
 # CUDA-core flash kernels give each thread head_dim / 16 output columns).
@@ -159,8 +158,7 @@ def _check_flash_args(q, k, v, *rest):
 
 
 def _stream(t):
-    with torch.cuda.device(t.device):
-        return torch.cuda.current_stream().cuda_stream
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _count(name, dtype):
@@ -172,10 +170,9 @@ def _count(name, dtype):
 def _flash_fwd_cuda(q, k, v, causal, scale):
     _check_flash_args(q, k, v)
     b, sq, h, d = q.shape
-    fn = _build.load('flash_fwd').flash_fwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P]
-    fn.restype = I
+    fn = _build.function(FWD_KERNEL, 'flash_fwd',
+                         [P] * 5 + [I] * 5 + [ctypes.c_float, I, I, P])
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -193,11 +190,9 @@ def _bwd_call(name, q, k, v, o, lse, do, rest, causal, scale):
     delta; flash_dkv: delta, dk, dv)."""
     _check_flash_args(q, k, v, o, lse, do)
     b, sq, h, d = q.shape
-    fn = getattr(_build.load('flash_bwd'), name)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * (6 + len(rest)) + [I] * 5 + [ctypes.c_float, I, I,
-                                                     P]
-    fn.restype = I
+    fn = _build.function('flash_bwd', name, [P] * (6 + len(rest)) +
+                         [I] * 5 + [ctypes.c_float, I, I, P])
     status = fn(*(x.data_ptr() for x in (q, k, v, o, lse, do, *rest)), b, sq,
                 k.shape[1], h, d, scale, int(causal),
                 1 if q.dtype == torch.bfloat16 else 0, _stream(q))
@@ -382,11 +377,9 @@ def _chunk_prefill_cuda(q, k, v, q_offset, k_scale, v_scale):
     if q.dtype == torch.bfloat16 and d not in FLASH_HEAD_DIMS:
         raise ValueError(f'the bf16 chunk kernel takes head_dim in '
                          f'{FLASH_HEAD_DIMS} (16-column wgmma steps), got {d}')
-    lib = _build.load(KERNEL)
-    fn = lib.chunk_prefill
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I] * 6 + [ctypes.c_float, I, I, P]
-    fn.restype = I
+    fn = _build.function(KERNEL, 'chunk_prefill',
+                         [P] * 7 + [I] * 6 + [ctypes.c_float, I, I, P])
     out = torch.empty_like(q)
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 k_scale.data_ptr() if quant else None,
@@ -440,30 +433,35 @@ def _verify_attention_cuda(q, k, v, valid, seg, k_scale, v_scale, n_cols):
     b, vq, h, d = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     quant = k_scale is not None
+    bf16 = q.dtype == torch.bfloat16
     _check_cache_args(q, k, v, k_scale, v_scale, valid)
     if d % 16 or valid.shape != (b, s) or valid.dtype != torch.bool:
         raise ValueError(f'unsupported shapes q {tuple(q.shape)} valid '
                          f'{tuple(valid.shape)} (head_dim a multiple of 16, '
                          'bool valid [B, S])')
-    if h // n_kv * vq > VERIFY_MAX_ROWS:
-        raise ValueError(f'{h // n_kv} query heads per kv head x {vq} '
-                         f'segment tokens = {h // n_kv * vq} rows; the '
-                         f'verify kernel holds at most {VERIFY_MAX_ROWS}')
-    fn = _build.load(VERIFY_KERNEL).verify_attention
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 7 + [I] * 8 + [ctypes.c_float, I, I, P]
-    fn.restype = I
+    fn = _build.function(VERIFY_KERNEL, 'verify_attention',
+                         [P] * 10 + [I] * 10 + [ctypes.c_float, I, I, P])
     out = torch.empty_like(q)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr() if quant else None,
-                v_scale.data_ptr() if quant else None, valid.data_ptr(),
-                # Columns past the segment hold nothing any query sees.
-                out.data_ptr(), b, vq, s, h, n_kv, d, seg,
-                min(n_cols, seg + vq), d**-0.5,
-                1 if q.dtype == torch.bfloat16 else 0, 1 if quant else 0,
-                _stream(q))
+    stream = _stream(q)
+    # Columns past the segment hold nothing any query sees.
+    end = min(n_cols, seg + vq)
+    rows = h // n_kv * vq
+    rb = split_kv.rows_per_block(rows)
+    n_split, ml, acc, counters = 1, None, None, None
+    if bf16:
+        slots = b * n_kv * -(-rows // rb)
+        n_split = split_kv.split_count(slots, -(-end // split_kv.TILE),
+                                       split_kv.sm_count(q.device))
+        ml, acc, counters = split_kv.workspace(q.device, stream, slots,
+                                               n_split, rb, d)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
+                ptr(v_scale), valid.data_ptr(), out.data_ptr(), ptr(ml),
+                ptr(acc), ptr(counters), b, vq, s, h, n_kv, d, seg, end,
+                n_split, rb, d**-0.5, int(bf16), int(quant), stream)
     _build.check(status, VERIFY_KERNEL)
-    _build.LAUNCHES[VERIFY_KERNEL] += 1
+    _count(VERIFY_KERNEL, q.dtype)
     if quant:
         _build.LAUNCHES[VERIFY_KERNEL + '.int8'] += 1
     return out
@@ -481,8 +479,11 @@ def verify_attention(q, k, v, valid, seg_start, k_scale=None, v_scale=None,
     host integer, the shared write frontier. Only the first ``n_cols``
     columns (default S) are read: they must hold the whole segment.
     Returns [B, V, H, D]. CUDA tensors run the hand-written kernel
-    (int8 caches included); CPU tensors run
-    ``verify_attention_reference`` on the first n_cols columns."""
+    (int8 caches included, any H / H_kv x V query rows): a bf16 q the
+    split-KV tensor-core one (head_dim in ``FLASH_HEAD_DIMS``, else
+    ValueError), a f32 q the CUDA-core one (head_dim a multiple of 16 up
+    to 128). CPU tensors run ``verify_attention_reference`` on the
+    first n_cols columns."""
     s = k.shape[1]
     n_cols = s if n_cols is None else min(int(n_cols), s)
     seg = int(seg_start)

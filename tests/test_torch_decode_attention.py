@@ -18,6 +18,7 @@ from skypilot_tpu.models import inference as jinf
 from skypilot_tpu.ops import decode_attention as jda
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import decode_attention as tda
+from skypilot_tpu_torch.ops import split_kv
 
 torch.set_num_threads(2)
 
@@ -208,3 +209,83 @@ def test_cpu_tensors_take_the_plain_version():
         torch.full((b,), s, dtype=torch.int32), _torch(k_self),
         _torch(v_self), page=page)
     assert _build.LAUNCHES[tda.KERNEL] == 0
+
+
+LOG2E = 1.4426950408889634
+
+
+def _split_merge(q, k, v, live, n_split, tile, k_self, v_self):
+    """The bf16 K1 kernel's arithmetic in f32 torch for one (row, kv
+    head): q [rep, hd], k/v [end, hd] (the row's columns up to its live
+    end), live [end]. The columns cut into ``tile``-column tiles, the
+    tiles into split_kv.split_ranges; each split runs the online softmax
+    tile by tile in log2 units (dead columns zeroed before the products,
+    their probabilities exactly 0) into an unnormalised (m, l, acc); the
+    partials merge in split order with the self term as one more
+    step."""
+    rep, hd = q.shape
+    end = k.shape[0]
+    k = torch.where(live[:, None], k, 0.0)
+    v = torch.where(live[:, None], v, 0.0)
+    scale2 = hd**-0.5 * LOG2E
+    parts = []
+    for t0, t1 in split_kv.split_ranges(-(-end // tile), n_split):
+        m = torch.full((rep,), -np.inf)
+        l = torch.zeros(rep)
+        acc = torch.zeros(rep, hd)
+        for t in range(t0, t1):
+            c = slice(t * tile, min(end, (t + 1) * tile))
+            x = torch.where(live[c], q @ k[c].T * scale2, -np.inf)
+            m_new = torch.maximum(m, x.amax(1))
+            m_use = torch.where(m_new == -np.inf, 0.0, m_new)
+            corr = torch.exp2(m - m_use)
+            p = torch.where(live[c], torch.exp2(x - m_use[:, None]), 0.0)
+            l = l * corr + p.sum(1)
+            acc = acc * corr[:, None] + p @ v[c]
+            m = m_new
+        parts.append((m, l, acc))
+    s_self = q @ k_self * scale2
+    mx = torch.stack([s_self] + [m for m, _, _ in parts]).amax(0)
+    mu = torch.where(mx == -np.inf, 0.0, mx)
+    w_self = torch.exp2(s_self - mu)
+    l = w_self + sum(li * torch.exp2(m - mu) for m, li, _ in parts)
+    o = w_self[:, None] * v_self + sum(a * torch.exp2(m - mu)[:, None]
+                                       for m, _, a in parts)
+    return o / torch.clamp(l, min=1e-30)[:, None]
+
+
+@pytest.mark.parametrize('n_split', [1, 2, 3, 7])
+def test_split_and_merge_arithmetic_matches_the_reference(n_split):
+    """The split kernel's partial-and-merge arithmetic (``_split_merge``),
+    with the self term, over every (row, kv head), in f32, equals
+    ``paged_decode_reference`` within 1e-6: a row with bound 0 (every
+    split empty), a row of one tile (empty splits past it), a hole that
+    covers whole tiles (all-dead splits), a split boundary inside a
+    hole, num_pages below the cache's pages; NaN wherever nothing may be
+    read."""
+    b, s, n_kv, rep, page, num_pages, tile = 4, 64, 2, 4, 16, 3, 8
+    q, kc, vc, _, _, k_self, v_self = (
+        None if x is None else torch.from_numpy(x)
+        for x in _inputs(b, s, n_kv, rep, seed=10 + n_split))
+    bound = torch.tensor([0, 5, 48, 40], dtype=torch.int32)
+    pos = torch.arange(s)
+    valid = pos[None, :] < bound[:, None]
+    valid[2, 8:30] = False                    # tiles 1-2 dead, 3 partly
+    valid[3, 3] = False
+    row_end = torch.clamp((bound + page - 1) // page * page,
+                          max=num_pages * page)
+    readable = valid & (pos[None, :] < row_end[:, None])
+    kc[~readable], vc[~readable] = float('nan'), float('nan')
+    want = tda.paged_decode_reference(q, kc, vc, valid, bound, k_self,
+                                      v_self, page=page,
+                                      num_pages=num_pages)
+    got = torch.empty((b, n_kv, rep, HD))
+    for row in range(b):
+        end = int(row_end[row])
+        for kh in range(n_kv):
+            got[row, kh] = _split_merge(
+                q[row, kh * rep:(kh + 1) * rep], kc[row, :end, kh],
+                vc[row, :end, kh], readable[row, :end], n_split, tile,
+                k_self[row, kh], v_self[row, kh])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.reshape(b, -1), want, atol=1e-6, rtol=0)

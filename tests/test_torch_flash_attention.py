@@ -40,6 +40,21 @@ def _qkv(b, sq, sk, h, hkv, d, seed):
             rng.standard_normal((b, sk, hkv, d)).astype(np.float32))
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """The parity tests below hold f32 sums to 2e-5. With two intra-op
+    threads, the same ``_plain_fwd`` call on the same inputs in one
+    process was seen to change its log-sum-exp by up to 4.5e-5 partway
+    through a run (after a JAX interpret-mode call): the threaded f32
+    reduction is not stable from call to call. One thread is. Set here,
+    not at import: every test file sets the count when it is collected,
+    and the last one collected would win."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bhsd(x):
     """[B, S, H, D] numpy -> the TPU kernels' [B, H, S, D] jax array."""
     return jnp.asarray(x.transpose(0, 2, 1, 3))
@@ -66,6 +81,21 @@ def test_plain_fwd_matches_pallas_kernel(sq, sk, causal):
                                rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(lse[..., 0]),
                                atol=ATOL_FWD, rtol=0)
+
+
+def test_plain_fwd_is_bitwise_stable_across_repeats():
+    """After one JAX interpret-mode call, as the parity test makes, 30
+    calls of ``_plain_fwd`` on identical inputs give the same bits."""
+    q, k, v = _qkv(1, 256, 256, 2, 2, 32, seed=512)
+    scale = 32**-0.5
+    jfa._flash_fwd_pallas(_bhsd(q), _bhsd(k), _bhsd(v), causal=True,
+                          scale=scale, block_q=128, block_k=128,
+                          interpret=True)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    first_o, first_lse = tfa._plain_fwd(*args, causal=True, scale=scale)
+    for i in range(29):
+        o, lse = tfa._plain_fwd(*args, causal=True, scale=scale)
+        assert torch.equal(o, first_o) and torch.equal(lse, first_lse), i
 
 
 @pytest.mark.parametrize('causal', [True, False])

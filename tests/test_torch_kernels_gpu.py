@@ -6,21 +6,22 @@ JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider \\
         tests/test_torch_kernels_gpu.py -q
 
-K1 (paged decode) at Llama-3.1-8B decode shapes, K2 (chunked
-prefill) at the engine's chunk shapes and its edges (head_dim 16, 64
-and 128, ragged C, offsets 0, 63, 64 and S - C, GQA 1, 4 and 8) and K3
-(spec-decode verify) at the 8B verify shapes and its edges, NaN
-planted wherever a kernel may not read; K4 (flash forward: o and lse)
-and K5a/K5b (flash dQ and dK/dV) causal and not, with Sq < Sk, a
-ragged S and every head_dim they take, on both routes (f32: CUDA
-cores; bf16: tensor cores for K2, K4, K5a and K5b), the route each
-launch counts and the delta K5a hands to K5b. Bars, element-wise:
-|kernel - plain| <= 1e-4 in f32; in bf16 and int8, <= 1e-2 + 2^-7
-|plain| (the TPU kernel's 1e-2 plus one bf16 step of the value: the
-plain versions keep f32 inside and round once at the end, while a
-kernel may round at another place — K1 and K3 keep probabilities in
-f32 where the chunk and verify plain versions round them, the bf16 K2,
-K4, K5a and K5b round P and dS to bf16 for their second products).
+K1 (paged decode) at Llama-3.1-8B decode shapes and its split edges
+(one-tile rows, holes across split boundaries, bound-0 rows, one long
+row split many ways), K2 (chunked prefill) at the engine's chunk shapes
+and its edges (head_dim 16, 64 and 128, ragged C, offsets 0, 63, 64
+and S - C, GQA 1, 4 and 8) and K3 (spec-decode verify) at the 8B verify
+shapes and its edges (72 and 136 query rows per kv head, split edges),
+NaN planted wherever a kernel may not read; an f32 engine with a 72-row
+verify segment against spec-off; K4 (flash forward: o and lse) and
+K5a/K5b (flash dQ and dK/dV) causal and not, with Sq < Sk, a ragged S
+and every head_dim they take, on both routes (f32: CUDA cores; bf16:
+tensor cores), the route each launch counts and the delta K5a hands to
+K5b. Bars, element-wise: |kernel - plain| <= 1e-4 in f32; in bf16 and
+int8, <= 1e-2 + 2^-7 |plain| (the TPU kernel's 1e-2 plus one bf16 step
+of the value: the plain versions keep f32 inside and round once at the
+end, or round the normalized probabilities, while a bf16 kernel rounds
+the unnormalized P, and dS, to bf16 for its second products).
 int8 scales keep the dequantized values within +-1. TF32 is off: the
 plain versions' f32 products run in full f32.
 """
@@ -51,45 +52,82 @@ def _scales(shape, gen, dev):
             0.001).to(torch.bfloat16)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('dtype', ['bf16', 'int8'])
-def test_paged_decode_kernel_matches_plain(cuda, dtype):
-    b, s, n_kv, rep, hd, page = 8, 512, 8, 4, 128, 128
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn((b, n_kv * rep, hd), generator=gen,
-                    device=cuda).to(torch.bfloat16)
-    lengths = torch.tensor([0, 1, 127, 128, 129, 300, 384, 512],
-                           dtype=torch.int32, device=cuda)
-    valid = torch.arange(s, device=cuda)[None, :] < lengths[:, None]
-    valid[5, 200:210] = False
+def _decode_inputs(dev, b, s, n_kv, rep, hd, page, num_pages, bounds,
+                   holes, dtype, seed):
+    """K1 inputs: row bounds ``bounds``, dmask holes ``holes`` (row,
+    start, stop), NaN wherever the kernel may not read (past num_pages,
+    past each row's bound, in the holes; in the scales for int8)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qdt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    q = torch.randn((b, n_kv * rep, hd), generator=gen, device=dev).to(qdt)
+    bounds = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    pos = torch.arange(s, device=dev)[None, :]
+    valid = pos < bounds[:, None]
+    for row, start, stop in holes:
+        valid[row, start:stop] = False
+    live_end = torch.clamp((bounds + page - 1) // page * page,
+                           max=num_pages * page)
+    readable = valid & (pos < live_end[:, None])
     ks = vs = None
     if dtype == 'int8':
-        kc = torch.randint(-127, 128, (b, s, n_kv, hd), generator=gen,
-                           device=cuda, dtype=torch.int8)
-        vc = torch.randint(-127, 128, (b, s, n_kv, hd), generator=gen,
-                           device=cuda, dtype=torch.int8)
-        ks, vs = (_scales((b, s, n_kv), gen, cuda) for _ in range(2))
-        ks[~valid] = float('nan')
-        vs[~valid] = float('nan')
+        kc, vc = (torch.randint(-127, 128, (b, s, n_kv, hd), generator=gen,
+                                device=dev, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (_scales((b, s, n_kv), gen, dev) for _ in range(2))
+        ks[~readable] = float('nan')
+        vs[~readable] = float('nan')
     else:
-        kc = torch.randn((b, s, n_kv, hd), generator=gen,
-                         device=cuda).to(torch.bfloat16)
-        vc = torch.randn((b, s, n_kv, hd), generator=gen,
-                         device=cuda).to(torch.bfloat16)
-        kc[~valid] = float('nan')
-        vc[~valid] = float('nan')
-    k_self = torch.randn((b, n_kv, hd), generator=gen,
-                         device=cuda).to(torch.bfloat16)
-    v_self = torch.randn((b, n_kv, hd), generator=gen,
-                         device=cuda).to(torch.bfloat16)
-    args = (q, kc, vc, valid, lengths, k_self, v_self, ks, vs)
+        kc, vc = (torch.randn((b, s, n_kv, hd), generator=gen,
+                              device=dev).to(qdt) for _ in range(2))
+        kc[~readable] = float('nan')
+        vc[~readable] = float('nan')
+    k_self, v_self = (torch.randn((b, n_kv, hd), generator=gen,
+                                  device=dev).to(qdt) for _ in range(2))
+    return q, kc, vc, valid, bounds, k_self, v_self, ks, vs
+
+
+def _decode_check(args, page, num_pages, dtype):
+    """K1 against its plain version; the launch counts its route."""
     _build.reset_launches()
-    got = tda.paged_gqa_decode_attention(*args, page=page, num_pages=3)
-    want = tda.paged_decode_reference(*args, page=page, num_pages=3)
+    got = tda.paged_gqa_decode_attention(*args, page=page,
+                                         num_pages=num_pages)
+    want = tda.paged_decode_reference(*args, page=page, num_pages=num_pages)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES[tda.KERNEL] == 1
+    route = {tda.KERNEL: 1}
+    if dtype != 'bf16':
+        route[f'{tda.KERNEL}.{dtype}'] = 1
+    assert dict(_build.LAUNCHES) == route
     assert torch.isfinite(got.float()).all()
-    _assert_within_bar(got, want)
+    _assert_within_bar(got, want, f32=dtype == 'f32')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bf16', 'int8', 'f32'])
+def test_paged_decode_kernel_matches_plain(cuda, dtype):
+    args = _decode_inputs(cuda, 8, 512, 8, 4, 128, 128, 3,
+                          [0, 1, 127, 128, 129, 300, 384, 512],
+                          [(5, 200, 210)], dtype, 0)
+    _decode_check(args, 128, 3, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bf16', 'int8'])
+@pytest.mark.parametrize('b,s,bounds,holes,num_pages', [
+    (4, 256, [1, 64, 0, 65], [], 2),
+    (2, 8192, [8000, 0], [(0, 3000, 5100)], 64),
+    (1, 8192, [8192], [(0, 2000, 2100)], 64),
+    (8, 1024, [0] * 8, [], 8),
+], ids=['one-tile-rows', 'hole-across-splits', 'one-row-many-splits',
+        'all-empty'])
+def test_paged_decode_split_edges(cuda, dtype, b, s, bounds, holes,
+                                  num_pages):
+    """The split kernel at its edges: rows of one tile (splits past them
+    empty), a hole over whole splits and across split boundaries, one
+    row split many ways, rows with bound 0 (every split empty: the self
+    value), NaN past every frontier."""
+    args = _decode_inputs(cuda, b, s, 8, 4, 128, 128, num_pages, bounds,
+                          holes, dtype, b + s)
+    _decode_check(args, 128, num_pages, dtype)
 
 
 @pytest.mark.gpu
@@ -237,13 +275,90 @@ def test_verify_kernel_matches_plain(cuda, b, vq, h, n_kv, d, s, seg, n_cols,
 
 @pytest.mark.gpu
 def test_verify_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 9, 16, 64), device=cuda)      # 8 x 9 = 72 rows
+    """Any number of query rows is taken: 8 x 9 = 72 rows (two 64-row
+    tiles in one bf16 block, two f32 row groups) and 8 x 17 = 136 rows
+    (two bf16 row chunks, three f32 row groups) agree with the plain
+    version on both routes. A float16 q is refused."""
+    for h, n_kv, vq in ((16, 2, 9), (32, 4, 17)):
+        for dtype in ('f32', 'bf16'):
+            gen = torch.Generator(device=cuda).manual_seed(vq)
+            q, k, v, valid, ks, vs = _verify_inputs(
+                cuda, 2, vq, h, n_kv, 128, 320, 290, dtype, gen)
+            _build.reset_launches()
+            got = tfa.verify_attention(q, k, v, valid, 290)
+            want = tfa.verify_attention_reference(q, k, v, valid, 290)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES[tfa.VERIFY_KERNEL + '.f32'] == \
+                (dtype == 'f32')
+            assert torch.isfinite(got.float()).all()
+            _assert_within_bar(got, want, f32=dtype == 'f32')
     k = torch.zeros((1, 64, 2, 64), device=cuda)
     valid = torch.zeros((1, 64), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match='holds at most'):
-        tfa.verify_attention(q, k, k, valid, 10)
     with pytest.raises(TypeError):
-        tfa.verify_attention(q[:, :4].to(torch.float16), k, k, valid, 10)
+        tfa.verify_attention(torch.zeros((1, 4, 16, 64), device=cuda).to(
+            torch.float16), k.to(torch.float16), k.to(torch.float16),
+            valid, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bf16', 'int8'])
+@pytest.mark.parametrize('b,vq,s,seg,n_cols', [
+    (2, 3, 64, 10, None),          # one tile
+    (2, 5, 8192, 8000, None),      # few rows, each split many ways
+    (8, 5, 8192, 6000, 6016),      # holes across split boundaries
+], ids=['one-tile', 'few-rows-many-splits', 'holes-across-splits'])
+def test_verify_split_edges(cuda, dtype, b, vq, s, seg, n_cols):
+    """The split kernel at its edges: a single tile, two rows split many
+    ways, decode columns with holes (every fifth column) across split
+    boundaries, an inactive row (only its segment), NaN in every column
+    no query may attend."""
+    gen = torch.Generator(device=cuda).manual_seed(seg)
+    q, k, v, valid, ks, vs = _verify_inputs(cuda, b, vq, 32, 8, 128, s, seg,
+                                            dtype, gen)
+    _build.reset_launches()
+    got = tfa.verify_attention(q, k, v, valid, seg, ks, vs, n_cols=n_cols)
+    n = n_cols or s
+    cut = (lambda t: None if t is None else t[:, :n])
+    want = tfa.verify_attention_reference(q, cut(k), cut(v), cut(valid),
+                                          seg, cut(ks), cut(vs))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[tfa.VERIFY_KERNEL] == 1
+    assert _build.LAUNCHES[tfa.VERIFY_KERNEL + '.f32'] == 0
+    assert torch.isfinite(got.float()).all()
+    _assert_within_bar(got, want)
+
+
+@pytest.mark.gpu
+def test_wide_verify_segment_engine_on_the_card(cuda):
+    """An f32 engine whose verify segment is wider than one 64-row tile
+    (8 query heads on one kv head, spec_k 8: 72 rows) gives spec-off's
+    greedy tokens, with K3 on its f32 route."""
+    from skypilot_tpu_torch.models import llama
+    from skypilot_tpu_torch.models import serving_engine as se
+    cfg = llama.LlamaConfig.tiny(dim=128, n_heads=8, n_kv_heads=1)
+    params = llama.init_params(cfg, 0, device=cuda)
+    gen = torch.Generator().manual_seed(4)
+    pat = torch.randint(0, cfg.vocab_size, (5,), generator=gen).tolist()
+    prompts = {'a': torch.randint(0, cfg.vocab_size, (11,),
+                                  generator=gen).tolist(),
+               'rep': (pat * 6)[:28]}
+    kw = dict(batch_size=3, max_prompt=32, max_seq=160, decode_chunk=4,
+              prefill_chunk=8, prefill_budget=16, page=8, device=cuda)
+
+    def run(**extra):
+        eng = se.ServingEngine(params, cfg, **kw, **extra)
+        res = eng.run([se.Request(r, p, max_new=14)
+                       for r, p in prompts.items()])
+        return eng, {r: res[r].tokens for r in prompts}
+
+    _, want = run()
+    _build.reset_launches()
+    eng, got = run(spec_decode=True, spec_k=8)
+    torch.cuda.synchronize()
+    assert got == want
+    k3 = _build.LAUNCHES[tfa.VERIFY_KERNEL]
+    assert k3 == eng.spec_ticks * cfg.n_layers > 0
+    assert _build.LAUNCHES[tfa.VERIFY_KERNEL + '.f32'] == k3
 
 
 @pytest.mark.gpu

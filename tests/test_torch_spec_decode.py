@@ -344,6 +344,28 @@ def test_engine_spec_equals_spec_off_jax_and_reference(gqa):
     assert jeng.spec_stats()['accepted'] == jeng.spec_stats()['proposed']
 
 
+def test_wide_verify_segment_engine_equals_spec_off_and_reference():
+    """A verify segment wider than one 64-row tile: 8 query heads on one
+    kv head and spec_k 8 give 8 x 9 = 72 rows per kv head. The engine
+    serves it (the kernel takes any width), and its greedy tokens equal
+    spec-off's and reference_generate's with the oracle and the
+    prompt-lookup proposers."""
+    models = _models(n_heads=8, n_kv_heads=1)
+    vocab = models[0].vocab_size
+    pat = _prompt(vocab, 5, 19)
+    prompts = {'a': _prompt(vocab, 11, 3), 'rep': (pat * 6)[:28]}
+    want = _reference(models, prompts, 14)
+    assert _run(_port_engine(models), prompts, 14) == want
+    oracle = _oracle({r: (p, want[r]) for r, p in prompts.items()})
+    for lookup in (oracle, None):
+        eng = _port_engine(models, spec_decode=True, spec_k=8)
+        assert eng.spec_decode and eng._spec_v == 9
+        if lookup is not None:
+            eng._lookup = lookup
+        assert _run(eng, prompts, 14) == want
+        assert eng.spec_stats()['spec_ticks'] > 0
+
+
 def test_int8_kv_spec_engine_matches_jax_spec_engine(models):
     """int8 KV: the port's spec engine gives the JAX spec engine's
     tokens (both verify through the same quantized segment), with the

@@ -21,6 +21,7 @@ from skypilot_tpu.models import inference as jinf
 from skypilot_tpu.models import quantization as jquant
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import flash_attention as tfa
+from skypilot_tpu_torch.ops import split_kv
 
 # The JAX ops package re-exports a ``flash_attention`` function under
 # the module's name; go through importlib for the module itself.
@@ -178,17 +179,16 @@ def test_int8_self_term_differs_between_decode_and_verify_in_the_reference():
 
 def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     """The CUDA wrapper's checks run before any build or launch, so they
-    show here: more than 64 query rows per block, a head_dim off the
-    16-byte load grid, an unsupported dtype, scales without their pair,
-    a non-bool dmask."""
+    show here: a head_dim off the 16-byte load grid, an unsupported
+    dtype, scales without their pair, a non-bool dmask. (Any number of
+    query rows is taken: ``test_plain_matches_jax_kernel_wide_segments``
+    and the card's tests hold segments of more than 64 rows.)"""
     def call(q, k, valid=None, ks=None, vs=None):
         valid = torch.zeros(k.shape[:2], dtype=torch.bool) if valid is None \
             else valid
         return tfa._verify_attention_cuda(q, k, k, valid, 4, ks, vs,
                                           k.shape[1])
     k = torch.zeros((1, 16, 2, 64))
-    with pytest.raises(ValueError, match='holds at most 64'):
-        call(torch.zeros((1, 9, 16, 64)), k)             # 8 x 9 rows
     with pytest.raises(ValueError, match='multiple of 16'):
         call(torch.zeros((1, 2, 4, 24)), torch.zeros((1, 16, 2, 24)))
     with pytest.raises(TypeError, match='float32 or bfloat16'):
@@ -200,3 +200,124 @@ def test_the_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match='bool valid'):
         call(torch.zeros((1, 2, 4, 64)), k,
              valid=torch.zeros((1, 16), dtype=torch.int8))
+
+
+@pytest.mark.parametrize('gqa,vq', [((8, 1), 9), ((4, 1), 17)],
+                         ids=['72rows', '68rows'])
+def test_plain_matches_jax_kernel_wide_segments(gqa, vq):
+    """More query rows per kv head than one 64-row tile (rep x V of
+    8 x 9 and 4 x 17, spec_k 8 and 16): the port's plain version — the
+    semantics K3 now holds at any width — equals JAX's Pallas kernel in
+    interpret mode and its reference."""
+    h, n_kv = gqa
+    b, s, seg = 2, 48, 24
+    rng = np.random.default_rng(vq)
+    q = rng.standard_normal((b, vq, h, D)).astype(np.float32)
+    k = rng.standard_normal((b, s, n_kv, D)).astype(np.float32)
+    v = rng.standard_normal((b, s, n_kv, D)).astype(np.float32)
+    valid = np.zeros((b, s), bool)
+    valid[0, :11] = True
+    valid[0, 16:seg] = True
+    valid[0, 19] = False
+    got = _port(q, k, v, valid, seg)
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+             jnp.asarray(valid), seg)
+    pal = jfa.verify_attention(*jargs, impl='pallas', block_k=8,
+                               interpret=True)
+    ref = jfa.verify_attention_reference(*jargs)
+    np.testing.assert_allclose(got, np.asarray(pal), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL, rtol=0)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _split_merge(q, k, v, allow, n_split, tile):
+    """The bf16 K3 kernel's arithmetic in f32 torch: q [R, D] (one
+    block's rows), k/v [S, D], allow [R, S]. The columns cut into
+    ``tile``-column tiles, the tiles into split_kv.split_ranges; each
+    split runs the online softmax tile by tile in log2 units (dead
+    columns zeroed before the products, their probabilities exactly 0)
+    into an unnormalised (m, l, acc); the partials merge in split
+    order."""
+    rows, s = allow.shape
+    live = allow.any(0)
+    k = torch.where(live[:, None], k, 0.0)
+    v = torch.where(live[:, None], v, 0.0)
+    scale2 = q.shape[-1]**-0.5 * LOG2E
+    parts = []
+    for t0, t1 in split_kv.split_ranges(-(-s // tile), n_split):
+        m = torch.full((rows,), -np.inf)
+        l = torch.zeros(rows)
+        acc = torch.zeros(rows, q.shape[-1])
+        for t in range(t0, t1):
+            c = slice(t * tile, min(s, (t + 1) * tile))
+            x = torch.where(allow[:, c], q @ k[c].T * scale2, -np.inf)
+            m_new = torch.maximum(m, x.amax(1))
+            m_use = torch.where(m_new == -np.inf, 0.0, m_new)
+            corr = torch.exp2(m - m_use)
+            p = torch.where(allow[:, c], torch.exp2(x - m_use[:, None]), 0.0)
+            l = l * corr + p.sum(1)
+            acc = acc * corr[:, None] + p @ v[c]
+            m = m_new
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    mu = torch.where(mx == -np.inf, 0.0, mx)
+    l = sum(li * torch.exp2(m - mu) for m, li, _ in parts)
+    o = sum(a * torch.exp2(m - mu)[:, None] for m, _, a in parts)
+    return o / torch.clamp(l, min=1e-30)[:, None]
+
+
+@pytest.mark.parametrize('n_split', [1, 2, 3, 7])
+def test_split_and_merge_arithmetic_matches_the_reference(n_split):
+    """The split kernel's partial-and-merge arithmetic (``_split_merge``)
+    over every (row, kv head) of a 72-row segment, in f32, equals
+    ``verify_attention_reference`` within 1e-6: at 7 splits of 6 tiles
+    one split is empty, and the inactive row's and the recycled row's
+    splits below the segment are all dead. NaN in every dead column."""
+    b, vq, h, n_kv, s, seg, tile = 3, 9, 16, 2, 48, 38, 8
+    rep = h // n_kv
+    rng = np.random.default_rng(n_split)
+    q = torch.from_numpy(rng.standard_normal((b, vq, h, D)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, n_kv, D)).astype(
+        np.float32)) for _ in range(2))
+    valid = torch.zeros((b, s), dtype=torch.bool)
+    valid[0, :13] = True
+    valid[0, 20:seg] = True
+    valid[0, [22, 31]] = False                # rejected candidates
+    valid[2, :3] = True                       # a recycled row; row 1 idle
+    col = torch.arange(s)
+    qi = torch.arange(vq)
+    allow = valid[:, None, :] | ((col >= seg) & (col <= seg + qi[:, None]))
+    dead = ~allow.any(1)                                     # [B, S]
+    k[dead], v[dead] = float('nan'), float('nan')
+    want = tfa.verify_attention_reference(q, k, v, valid, seg)
+    got = torch.empty_like(want)
+    for row in range(b):
+        for kh in range(n_kv):
+            # Block row r: segment position r / rep, head kh rep + r % rep.
+            qr = q[row, :, kh * rep:(kh + 1) * rep].reshape(vq * rep, D)
+            ar = allow[row].repeat_interleave(rep, 0)
+            o = _split_merge(qr, k[row, :, kh], v[row, :, kh], ar, n_split,
+                             tile)
+            got[row, :, kh * rep:(kh + 1) * rep] = o.reshape(vq, rep, D)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_split_geometry():
+    """The split count keeps the grid within two blocks per SM, at most
+    one split per tile and 64 in all; the ranges cut the tiles in order,
+    sizes within one, empty where there are more splits than tiles;
+    K3's blocks hold one or two 64-row tiles."""
+    assert split_kv.split_count(64, 12, 132) == 4
+    assert split_kv.split_count(64, 2, 132) == 2
+    assert split_kv.split_count(512, 100, 132) == 1
+    assert split_kv.split_count(8, 0, 132) == 1
+    assert split_kv.split_count(2, 1000, 132) == 64
+    assert split_kv.split_ranges(6, 7) == [(0, 0), (0, 1), (1, 2), (2, 3),
+                                           (3, 4), (4, 5), (5, 6)]
+    assert split_kv.split_ranges(10, 3) == [(0, 3), (3, 6), (6, 10)]
+    assert [split_kv.rows_per_block(r) for r in (1, 20, 64, 65, 136)] == \
+        [64, 64, 64, 128, 128]
