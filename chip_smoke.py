@@ -47,7 +47,8 @@ Phases (any failure exits 1 and prints no result line):
    column no query may attend; f32, bf16 and int8 under the same bars,
    each launch counting its route; segments wider than one 64-row tile
    (4 x 17 = 68 and 8 x 17 = 136 query rows per kv head) in f32 and
-   bf16; the published max_seq 8192 (segment at column 8000), bf16.
+   bf16; the published max_seq 8192 (segment at column 8000), bf16. The
+   segment start is a device int32, as the engine's write frontier is.
 4. Times on the card: each kernel, its plain version, one PyTorch
    call computing the same function (scaled_dot_product_attention
    with an explicit mask; the port never calls it) and the least time
@@ -57,17 +58,25 @@ Phases (any failure exits 1 and prints no result line):
    in bf16 (all 32 layers, random weights from ``--seed``) behind
    ``ServingEngine(batch_size=8, max_prompt=512, prefill_chunk=128,
    prefill_budget=256, decode_chunk=8)``, serving 12 greedy requests
-   (prompts of 100-512 tokens, 32 new tokens each). Every request
-   must finish with 32 tokens, and the launch counts must equal
-   decode steps x 32 (K1) and prefill ticks x 32 (K2, all on the bf16
-   route: no ``chunk_prefill.f32``). Then the spec
+   (prompts of 100-512 tokens, 32 new tokens each). Every serving run
+   of phases 5, 6 and 6b runs on captured tick programs (one CUDA graph
+   per key, captured in ``warmup()``): the capture count must equal the
+   enumerated key count, and no run may capture more. Every request
+   must finish with 32 tokens, and the launch counts (counted per
+   replay) must equal decode steps x 32 (K1) and prefill ticks x 32
+   (K2, all on the bf16 route: no ``chunk_prefill.f32``). The same
+   requests are then served with eager ticks in the same call (graphs
+   off through the engine's private attribute) under the same gates,
+   and the two output tokens/s are printed side by side. Then the spec
    path on the same weights (``phase_spec_path``): 12 requests on
    prompts that repeat a random segment, served spec off, spec on
    (``spec_k=4``) with the prompt-lookup proposer, and spec on with the
    spec-off tokens as drafts; each run's launches must equal its decode
    steps, prefill ticks and verify ticks x 32, K3's above 0 in both
-   spec runs, and no K2 launch on the f32 route. Output tokens/s and
-   ``spec_stats()`` of each run.
+   spec runs, and no K2 launch on the f32 route; the prompt-lookup run
+   is served once more with eager ticks. Output tokens/s and
+   ``spec_stats()`` of each run, each warmup's capture count, capture
+   seconds and graph pool memory, peak memory.
 6. Parity: the same width at depth 2 in f32; the engine's greedy
    tokens must equal the port's cache-free ``reference_generate``.
    A second pass with an int8 KV cache must finish every request
@@ -115,9 +124,10 @@ Phases (any failure exits 1 and prints no result line):
    K4 launched once per layer (the prefill, on the f32 route), K1 per
    decode step.
 
-``--profile-dir DIR`` adds a torch.profiler pass after the serving run,
-the organic spec run and phase 8 (device idle share, device time by
-kernel group, tables in DIR).
+``--profile-dir DIR`` adds a torch.profiler pass after the serving runs
+(graphed and eager), the organic spec runs (graphed and eager) and
+phase 8 (device idle share, host ms per tick = (wall - device busy) /
+ticks, device time by kernel group, tables in DIR).
 
 The lines before the last print the card line and one JSON object
 ``{"kernels": [...]}`` (launches: K1/K2 from phase 5's run, K3 from the
@@ -555,6 +565,7 @@ def verify_inputs(torch, dev, kind, seed, shape=None):
     100-512 tokens and decode columns with rejected-candidate holes
     (each earlier V-column verify tick kept its first 1-V columns). NaN
     sits in every column no query may attend (in the scales for int8).
+    The segment start is a device int32, as the engine passes it.
     ``shape`` (V, H, n_kv, S, seg, n_cols) replaces the defaults."""
     b, vq, h, n_kv, d, s, seg, n_cols = 8, 5, 32, 8, 128, 1024, 700, 768
     if shape is not None:
@@ -588,7 +599,8 @@ def verify_inputs(torch, dev, kind, seed, shape=None):
         v = torch.randn((b, s, n_kv, d), generator=gen, device=dev).to(qdt)
         k[~live] = float('nan')
         v[~live] = float('nan')
-    return (q, k, v, valid, seg, ks, vs), n_cols
+    seg_t = torch.tensor(seg, dtype=torch.int32, device=dev)
+    return (q, k, v, valid, seg_t, ks, vs), n_cols
 
 
 # K3 segments wider than one 64-row tile (V, H, n_kv, S, seg, n_cols):
@@ -618,6 +630,7 @@ def verify_cost(args, n_cols):
     q, k, _, valid, seg, ks, _ = args
     b, vq, h, d = q.shape
     n_kv = k.shape[2]
+    seg = int(seg)
     end = min(n_cols, seg + vq)
     dmask = int(valid[:, :end].sum())
     cols = dmask + b * vq
@@ -642,6 +655,7 @@ def verify_check(torch, fa, args, n_cols, kind, tag):
     # The inactive row's first query attends its own column alone.
     q, k, v, valid, seg, ks, vs = args
     rep = q.shape[2] // k.shape[2]
+    seg = int(seg)
     own = v[0, seg].float()
     if vs is not None:
         own = own * vs[0, seg].float()[:, None]
@@ -722,6 +736,7 @@ def verify_library_ms(torch, args, n_cols):
     kernel reads; inputs laid out before the timing, NaN cleared."""
     q, k, v, valid, seg, _, _ = args
     vq = q.shape[1]
+    seg = int(seg)
     end = min(n_cols, seg + vq)
     col = torch.arange(end, device=q.device)[None, None, :]
     qi = torch.arange(vq, device=q.device)[None, :, None]
@@ -769,14 +784,123 @@ def oracle_lookup(prompts, outputs):
     return lookup
 
 
+def pool_bytes(torch, pool):
+    """Bytes of the device memory segments that belong to the graphs'
+    shared pool (None where the allocator's snapshot does not say)."""
+    if pool is None:
+        return None
+    total, found = 0, False
+    for seg in torch.cuda.memory_snapshot():
+        pid = seg.get('segment_pool_id')
+        if pid is not None and tuple(pid) == tuple(pool):
+            total += seg['total_size']
+            found = True
+    return total if found else None
+
+
+def warm(torch, eng, tag, graphs=True):
+    """``eng.warmup()``: with graphs, the capture count must equal the
+    enumerated key count (one graph per key); eager (graphs off through
+    the engine's private attribute), nothing is captured. Logs the
+    capture count and seconds and the graph pool's memory; returns the
+    warmup seconds."""
+    if not graphs:
+        eng._graphs = None
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    keys = eng._tick_keys()
+    if graphs:
+        pool = pool_bytes(torch, eng._graph_pool)
+        log(f'{tag}: warmup {secs:.2f} s, {eng.graph_captures} tick '
+            f'programs captured of {len(keys)} enumerated in '
+            f'{eng.graph_capture_s:.2f} s; graph pool '
+            + (f'{pool / 2**20:.1f} MiB' if pool is not None else
+               'not reported by the allocator')
+            + f'; memory allocated {torch.cuda.memory_allocated() / 2**30:.2f}'
+            ' GiB')
+        check(eng.graph_captures == len(keys) == len(eng._graphs),
+              f'{tag}: {eng.graph_captures} captures for {len(keys)} keys')
+    else:
+        log(f'{tag}: warmup {secs:.2f} s, eager ticks (graphs off)')
+        check(eng.graph_captures == 0, f'{tag}: eager engine captured')
+    return secs
+
+
+def serve(torch, eng, reqs, tag):
+    """Serve ``reqs`` with launch counts from 0; no capture may happen.
+    Returns (results, wall seconds, launches, ticks dispatched)."""
+    from skypilot_tpu_torch.ops import _build
+    ticks = [0]
+
+    def counted(key, launch=eng._launch):
+        ticks[0] += 1
+        return launch(key)
+    eng._launch = counted
+    captures = eng.graph_captures
+    _build.reset_launches()              # counts start here ...
+    t0 = time.perf_counter()
+    try:
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+    finally:
+        del eng._launch
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)     # ... and are read here
+    check(eng.graph_captures == captures,
+          f'{tag}: {eng.graph_captures - captures} tick programs captured '
+          'after warmup')
+    return res, wall, launches, ticks[0]
+
+
+def host_per_tick(busy, wall, ticks):
+    """(idle share, host ms per tick): wall minus device busy, over the
+    ticks dispatched."""
+    return 1 - busy / wall, (wall - busy) / max(ticks, 1) * 1e3
+
+
+def profile_serve(torch, eng, prompts, profile_dir, tag, wall, n_ticks):
+    """Serve ``prompts`` once more under torch.profiler (after the
+    measured run, so it does not slow that one). Logs the device idle
+    share and host ms per tick twice: of the measured run (its wall and
+    ticks, the busy time from the repeat) and of the profiled repeat
+    itself (its own wall and ticks, which the profiler's host tracing
+    inflates); and the device kernels per tick."""
+    from skypilot_tpu_torch.models.serving_engine import Request
+    again = [Request(('profiled', i), p, max_new=32)
+             for i, p in enumerate(prompts)]
+    ticks = [0]
+
+    def counted(key, launch=eng._launch):
+        ticks[0] += 1
+        return launch(key)
+    eng._launch = counted
+    try:
+        busy, p_wall, kernels = profile_run(
+            torch, lambda: eng.run(again), profile_dir,
+            tag.replace(' ', '_').replace('(', '').replace(')', ''))
+    finally:
+        del eng._launch
+    idle, host_ms = host_per_tick(busy, wall, n_ticks)
+    p_idle, p_host_ms = host_per_tick(busy, p_wall, ticks[0])
+    log(f'profile: {tag}: measured run: device idle share {idle:.3f}, host '
+        f'{host_ms:.2f} ms per tick ({n_ticks} ticks, {wall:.3f} s wall, '
+        f'{busy:.3f} s device busy from the repeat); profiled repeat: idle '
+        f'{p_idle:.3f}, host {p_host_ms:.2f} ms per tick ({ticks[0]} ticks, '
+        f'{p_wall:.3f} s wall); {kernels / max(ticks[0], 1):.0f} device '
+        'kernels per tick')
+
+
 def phase_main_path(torch, dev, seed, card, profile_dir=None):
-    """The full-width engine run; returns the launch counts it made.
-    With ``profile_dir``, the same requests are then served once more
-    under torch.profiler."""
+    """The full-width engine run on captured tick programs, then the same
+    requests served eagerly in the same call (graphs off through the
+    engine's private attribute); returns the graphed run's launch
+    counts. With ``profile_dir``, each run is then repeated under
+    torch.profiler (device busy, idle share, host ms per tick)."""
     from skypilot_tpu_torch.models import llama
     from skypilot_tpu_torch.models.serving_engine import (Request,
                                                           ServingEngine)
-    from skypilot_tpu_torch.ops import _build
     cfg = llama.LlamaConfig.llama3_8b(max_seq=1024,
                                       param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -789,57 +913,56 @@ def phase_main_path(torch, dev, seed, card, profile_dir=None):
     log(f'main path: llama3_8b {cfg.n_layers} layers, d {cfg.dim}, '
         f'{n_params / 1e9:.3f}B params in bf16, init '
         f'{time.perf_counter() - t0:.1f} s')
-    eng = ServingEngine(params, cfg, batch_size=8, max_prompt=512,
-                        prefill_chunk=128, prefill_budget=256,
-                        decode_chunk=8, device=dev)
-    t0 = time.perf_counter()
-    eng.warmup()
-    torch.cuda.synchronize()
-    log(f'main path: warmup {time.perf_counter() - t0:.2f} s')
     import numpy as np
     lengths = np.random.default_rng(seed + 1).integers(100, 513, 12)
     prompts = random_prompts(lengths, cfg.vocab_size, seed + 1)
-    reqs = [Request(i, p, max_new=32) for i, p in enumerate(prompts)]
-    steps0, ticks0 = eng.decode_steps_total, eng.prefill_ticks
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()              # counts start here ...
-    t0 = time.perf_counter()
-    res = eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)     # ... and are read here
-    steps = eng.decode_steps_total - steps0
-    ticks = eng.prefill_ticks - ticks0
-    out_toks = sum(len(r.tokens) for r in res.values())
-    log(f'main path: {len(res)} requests, {sum(map(len, prompts))} prompt '
-        f'tokens, {out_toks} output tokens in {wall:.3f} s = '
-        f'{out_toks / wall:.1f} output tokens/s on {card}; {steps} decode '
-        f'steps, {ticks} prefill ticks; peak memory '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
-        f'{launches}')
-    check(len(res) == 12 and all(
-        r.status == 'finished' and len(r.tokens) == 32 and
-        all(0 <= t < cfg.vocab_size for t in r.tokens)
-        for r in res.values()), 'a main-path request did not finish with '
-          '32 tokens')
-    check(launches.get('paged_decode', 0) == steps * cfg.n_layers > 0,
-          f'K1 launched {launches.get("paged_decode", 0)} times, want '
-          f'{steps} x {cfg.n_layers}')
-    check(launches.get('chunk_prefill', 0) == ticks * cfg.n_layers > 0,
-          f'K2 launched {launches.get("chunk_prefill", 0)} times, want '
-          f'{ticks} x {cfg.n_layers}')
-    check(launches.get('chunk_prefill.f32', 0) == 0 and
-          launches.get('paged_decode.f32', 0) == 0,
-          f'bf16 serving launched K1 or K2 on the f32 route: {launches}')
-    if profile_dir:
-        again = [Request(('profiled', i), p, max_new=32)
-                 for i, p in enumerate(prompts)]
-        busy = profile_run(torch, lambda: eng.run(again), profile_dir,
-                           'serve')
-        log(f'profile: device idle share of the measured run '
-            f'{1 - busy / wall:.3f} (busy {busy:.3f} s of {wall:.3f} s '
-            'wall, the busy time taken from the profiled repeat)')
-    del eng
+    runs = {}
+    for graphs in (True, False):
+        tag = 'main path' + ('' if graphs else ' (eager)')
+        eng = ServingEngine(params, cfg, batch_size=8, max_prompt=512,
+                            prefill_chunk=128, prefill_budget=256,
+                            decode_chunk=8, device=dev)
+        warm(torch, eng, tag, graphs)
+        reqs = [Request(i, p, max_new=32) for i, p in enumerate(prompts)]
+        steps0, ticks0 = eng.decode_steps_total, eng.prefill_ticks
+        torch.cuda.reset_peak_memory_stats()
+        res, wall, launches, n_ticks = serve(torch, eng, reqs, tag)
+        steps = eng.decode_steps_total - steps0
+        ticks = eng.prefill_ticks - ticks0
+        out_toks = sum(len(r.tokens) for r in res.values())
+        toks = [res[i].tokens for i in range(len(prompts))]
+        log(f'{tag}: {len(res)} requests, {sum(map(len, prompts))} prompt '
+            f'tokens, {out_toks} output tokens in {wall:.3f} s = '
+            f'{out_toks / wall:.1f} output tokens/s on {card}; {n_ticks} '
+            f'ticks ({steps} decode steps, {ticks} prefill ticks); peak '
+            f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+            f'launches {launches}')
+        check(len(res) == 12 and all(
+            r.status == 'finished' and len(r.tokens) == 32 and
+            all(0 <= t < cfg.vocab_size for t in r.tokens)
+            for r in res.values()), f'a {tag} request did not finish with '
+              '32 tokens')
+        check(launches.get('paged_decode', 0) == steps * cfg.n_layers > 0,
+              f'{tag}: K1 launched {launches.get("paged_decode", 0)} times, '
+              f'want {steps} x {cfg.n_layers}')
+        check(launches.get('chunk_prefill', 0) == ticks * cfg.n_layers > 0,
+              f'{tag}: K2 launched {launches.get("chunk_prefill", 0)} '
+              f'times, want {ticks} x {cfg.n_layers}')
+        check(launches.get('chunk_prefill.f32', 0) == 0 and
+              launches.get('paged_decode.f32', 0) == 0,
+              f'{tag}: bf16 serving launched K1 or K2 on the f32 route: '
+              f'{launches}')
+        runs[graphs] = (out_toks / wall, toks, launches)
+        if profile_dir:
+            profile_serve(torch, eng, prompts, profile_dir, tag, wall,
+                          n_ticks)
+        del eng
+    same = sum(a == b for a, b in zip(runs[True][1], runs[False][1]))
+    log(f'main path on {card}: graphed {runs[True][0]:.1f} output tokens/s, '
+        f'eager {runs[False][0]:.1f} in the same call '
+        f'({runs[True][0] / runs[False][0]:.2f}x); {same}/{len(prompts)} '
+        'requests give equal tokens')
+    launches = runs[True][2]
     launches['verify_attention'] = phase_spec_path(torch, dev, seed, card,
                                                    cfg, params, profile_dir)
     del params
@@ -850,47 +973,45 @@ def phase_main_path(torch, dev, seed, card, profile_dir=None):
 def phase_spec_path(torch, dev, seed, card, cfg, params, profile_dir=None):
     """Speculative decoding at full width on phase 5's weights: 12
     greedy requests of 32 new tokens on prompts of 100-512 tokens that
-    repeat a random segment, served three ways — spec off, spec on with
-    the prompt-lookup proposer, spec on with the spec-off run's own
-    tokens as drafts. Each run counts its launches from 0: K1 must equal
-    decode steps x layers, K2 prefill ticks x layers and K3 verify ticks
-    x layers, with K3 above 0 in both spec runs. bf16 spec-on tokens
-    need not equal spec-off (K3 and K1 round differently, and near-tied
-    argmaxes may flip): the count that do is printed. Returns K3's
-    launches in the organic run."""
+    repeat a random segment, served on captured tick programs three
+    ways — spec off, spec on with the prompt-lookup proposer, spec on
+    with the spec-off run's own tokens as drafts — and then prompt
+    lookup once more with eager ticks in the same call. Each run counts
+    its launches from 0: K1 must equal decode steps x layers, K2
+    prefill ticks x layers and K3 verify ticks x layers, with K3 above 0
+    in every spec run. bf16 spec-on tokens need not equal spec-off (K3
+    and K1 round differently, and near-tied argmaxes may flip): the
+    count that do is printed. Returns K3's launches in the graphed
+    prompt-lookup run."""
     import numpy as np
     from skypilot_tpu_torch.models.serving_engine import (Request,
                                                           ServingEngine)
-    from skypilot_tpu_torch.ops import _build
     lengths = np.random.default_rng(seed + 4).integers(100, 513, 12)
     prompts = repeated_prompts(lengths, cfg.vocab_size, seed + 4)
-    runs = {}
-    for mode in ('off', 'organic', 'oracle'):
+    runs, rates = {}, {}
+    for mode in ('off', 'organic', 'oracle', 'organic eager'):
         eng = ServingEngine(params, cfg, batch_size=8, max_prompt=512,
                             prefill_chunk=128, prefill_budget=256,
                             decode_chunk=8, spec_decode=mode != 'off',
                             spec_k=4, device=dev)
-        eng.warmup()
+        warm(torch, eng, f'spec path ({mode})', mode != 'organic eager')
         if mode == 'oracle':
             eng._lookup = oracle_lookup(prompts, runs['off'])
         reqs = [Request(i, p, max_new=32) for i, p in enumerate(prompts)]
-        _build.reset_launches()          # counts start here ...
-        t0 = time.perf_counter()
-        res = eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)  # ... and are read here
+        res, wall, launches, n_ticks = serve(torch, eng, reqs,
+                                             f'spec path ({mode})')
         toks = [res[i].tokens for i in range(len(prompts))]
         runs[mode] = toks
         steps, ticks = eng.decode_steps_total, eng.prefill_ticks
         verify = eng.spec_ticks
         out_toks = sum(map(len, toks))
+        rates[mode] = out_toks / wall
         same = sum(t == o for t, o in zip(toks, runs['off']))
         log(f'spec path ({mode}): {out_toks} output tokens in {wall:.3f} s '
-            f'= {out_toks / wall:.1f} output tokens/s on {card}; {steps} '
-            f'decode steps, {ticks} prefill ticks, {verify} verify ticks; '
-            f'{same}/{len(toks)} requests equal spec-off; spec_stats '
-            f'{eng.spec_stats()}; launches {launches}')
+            f'= {out_toks / wall:.1f} output tokens/s on {card}; {n_ticks} '
+            f'ticks ({steps} decode steps, {ticks} prefill ticks, {verify} '
+            f'verify ticks); {same}/{len(toks)} requests equal spec-off; '
+            f'spec_stats {eng.spec_stats()}; launches {launches}')
         check(all(res[i].status == 'finished' and len(t) == 32 and
                   all(0 <= x < cfg.vocab_size for x in t)
                   for i, t in enumerate(toks)),
@@ -907,15 +1028,14 @@ def phase_spec_path(torch, dev, seed, card, cfg, params, profile_dir=None):
               f'spec path ({mode}): no verify tick ran')
         if mode == 'organic':
             organic_k3 = launches.get('verify_attention', 0)
-            if profile_dir:
-                again = [Request(('profiled', i), p, max_new=32)
-                         for i, p in enumerate(prompts)]
-                busy = profile_run(torch, lambda: eng.run(again),
-                                   profile_dir, 'serve_spec')
-                log(f'profile: device idle share of the organic spec run '
-                    f'{1 - busy / wall:.3f} (busy {busy:.3f} s of '
-                    f'{wall:.3f} s wall, from the profiled repeat)')
+        if profile_dir and mode in ('organic', 'organic eager'):
+            profile_serve(torch, eng, prompts, profile_dir,
+                          f'spec path ({mode})', wall, n_ticks)
         del eng
+    log(f'spec path (prompt lookup) on {card}: graphed '
+        f'{rates["organic"]:.1f} output tokens/s, eager '
+        f'{rates["organic eager"]:.1f} in the same call '
+        f'({rates["organic"] / rates["organic eager"]:.2f}x)')
     return organic_k3
 
 
@@ -942,7 +1062,8 @@ def profile_run(torch, fn, out_dir, tag):
     and the kernels by device time, written to ``out_dir``. Each of the
     port's kernels is also counted twice, by the profiler and by the
     wrappers' launch counts over the same ``fn()``, so a launch the
-    profiler's window missed shows."""
+    profiler's window missed shows. Returns (device busy seconds, wall
+    seconds, kernels the profiler saw)."""
     from torch.profiler import ProfilerActivity, profile
 
     from skypilot_tpu_torch.ops import _build
@@ -993,14 +1114,13 @@ def profile_run(torch, fn, out_dir, tag):
     for e in kernels[:8]:
         log(f'  {dev_us(e) / 1e3:10.3f} ms {e.count:6d}x  {e.key[:90]}')
     log(f'profile: full table in {path}')
-    return busy
+    return busy, wall, sum(n for _, n in groups.values())
 
 
 def phase_parity(torch, dev, seed):
     from skypilot_tpu_torch.models import inference, llama
     from skypilot_tpu_torch.models.serving_engine import (Request,
                                                           ServingEngine)
-    from skypilot_tpu_torch.ops import _build
     cfg = llama.LlamaConfig.llama3_8b(n_layers=2, max_seq=512,
                                       param_dtype=torch.float32,
                                       compute_dtype=torch.float32)
@@ -1018,12 +1138,12 @@ def phase_parity(torch, dev, seed):
                             max_seq=512, prefill_chunk=128,
                             prefill_budget=256, decode_chunk=8,
                             kv_quant=kv_quant, device=dev)
-        _build.reset_launches()
-        res = eng.run([Request(i, p, max_new=16)
-                       for i, p in enumerate(prompts)])
-        torch.cuda.synchronize()
+        tag = f'parity (kv_quant={kv_quant})'
+        warm(torch, eng, tag)
+        res, _, launches, _ = serve(
+            torch, eng, [Request(i, p, max_new=16)
+                         for i, p in enumerate(prompts)], tag)
         got = [res[i].tokens for i in range(len(prompts))]
-        launches = dict(_build.LAUNCHES)
         same = sum(g == w for g, w in zip(got, want))
         log(f'parity (depth 2, f32, kv_quant={kv_quant}): {same}/'
             f'{len(want)} requests equal reference_generate; launches '
@@ -1059,7 +1179,6 @@ def phase_spec_parity(torch, dev, parity):
     f32 route."""
     from skypilot_tpu_torch.models.serving_engine import (Request,
                                                           ServingEngine)
-    from skypilot_tpu_torch.ops import _build
     check(parity is not None, 'phase 6 did not hand over its model')
     cfg, params, toks, lengths, want, engine_tokens = parity
     prompts = [toks[i, :n].tolist() for i, n in enumerate(lengths)]
@@ -1075,13 +1194,13 @@ def phase_spec_parity(torch, dev, parity):
                             kv_quant=kv_quant, spec_decode=True,
                             spec_k=spec_k, device=dev)
         check(eng.spec_decode, f'spec parity ({name}): speculation off')
+        warm(torch, eng, f'spec parity ({name})')
         if lookup is not None:
             eng._lookup = lookup
-        _build.reset_launches()
-        res = eng.run([Request(i, p, max_new=16)
-                       for i, p in enumerate(prompts)])
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
+        res, _, launches, _ = serve(
+            torch, eng, [Request(i, p, max_new=16)
+                         for i, p in enumerate(prompts)],
+            f'spec parity ({name})')
         got = [res[i].tokens for i in range(len(prompts))]
         same = sum(g == w for g, w in zip(got, want))
         log(f'spec parity (depth 2, f32, {name}): {same}/{len(want)} '
@@ -1378,8 +1497,8 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
           f'launches per step {per_step}, want {want} (remat reruns K4; '
           'bf16 takes no f32 route)')
     if profile_dir:
-        busy = profile_run(torch, lambda: step_fn(state, batch),
-                           profile_dir, 'train')
+        busy, _, _ = profile_run(torch, lambda: step_fn(state, batch),
+                                 profile_dir, 'train')
         log(f'profile: device idle share of a training step '
             f'{1 - busy / step_s:.3f} (busy {busy:.3f} s against the mean '
             f'step {step_s:.3f} s)')

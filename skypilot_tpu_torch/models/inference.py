@@ -11,16 +11,22 @@ Cache layout and slot rules are the reference's: K/V
 scales [n_layers, B, max_seq, n_kv] when quantized); prompts occupy
 slots [0, base); decode step i writes slot base + i for every row;
 ``dmask`` [B, max_seq] says which slots each row may read; ``length``
-[B] is each row's logical position. ``base`` and ``steps`` are host
-integers here, so the write slot never needs a device sync.
+[B] is each row's logical position. ``base`` is a host integer;
+``steps`` is a device int32 scalar, as the reference's is, so the write
+frontier ``base + steps`` never leaves the device.
 
 JAX donates the cache to its jitted programs so XLA updates it in
-place; here the cache tensors are written in place directly (slice
-assignment), and each function returns the same dict it was given.
+place; here every cache tensor is written in place (index copies, never
+a new tensor), and each function returns the same dict it was given.
+The tensors therefore keep their addresses for the cache's lifetime,
+which is what lets the engine capture its ticks as CUDA graphs; and no
+function that a tick runs (``decode_step``, ``prefill_chunk`` on device
+metadata, ``verify_step``, ``_sample`` on device temperatures) reads a
+device value on the host.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -42,8 +48,8 @@ def make_cache(cfg: LlamaConfig, batch_size: int, max_seq: int, *,
                device: Optional[Union[str, torch.device]] = None) -> Dict:
     """A fresh empty cache: zero K/V (int8 when ``kv_quant``, else the
     compute dtype), unit bf16 scales, zero lengths, an all-false dmask,
-    prompt region ``base`` and no decode steps. ``device=None`` means
-    CUDA."""
+    prompt region ``base`` and no decode steps (``steps`` a device int32
+    scalar). ``device=None`` means CUDA."""
     dev = resolve_device(device)
     kv_dtype = torch.int8 if kv_quant else cfg.compute_dtype
     shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads,
@@ -56,7 +62,7 @@ def make_cache(cfg: LlamaConfig, batch_size: int, max_seq: int, *,
         'dmask': torch.zeros((batch_size, max_seq), dtype=torch.bool,
                              device=dev),
         'base': int(base),
-        'steps': 0,
+        'steps': torch.zeros((), dtype=torch.int32, device=dev),
     }
     if kv_quant:
         cache['k_scale'] = torch.ones(shape[:4], dtype=torch.bfloat16,
@@ -64,6 +70,27 @@ def make_cache(cfg: LlamaConfig, batch_size: int, max_seq: int, *,
         cache['v_scale'] = torch.ones(shape[:4], dtype=torch.bfloat16,
                                       device=dev)
     return cache
+
+
+def reset_cache(cache: Dict) -> Dict:
+    """Restore ``cache`` in place to ``make_cache``'s values (zero K/V,
+    lengths, dmask and steps; unit scales): every tensor keeps its
+    address, so programs captured over it stay valid."""
+    for f in ('k', 'v', 'length', 'dmask', 'steps'):
+        cache[f].zero_()
+    for f in ('k_scale', 'v_scale'):
+        if f in cache:
+            cache[f].fill_(1)
+    return cache
+
+
+def _device_meta(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """A [G] chunk-metadata argument as a device tensor of ``dtype``: a
+    tensor already there passes through (no copy, no sync); a host
+    sequence is copied once."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
 def _gqa_decode_attention(q, kc, vc, valid, k_self=None, v_self=None,
@@ -99,14 +126,17 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     occupant. Attention reads the cache (plus each token's own K/V)
     through ``paged_gqa_decode_attention``; ``num_pages`` (with
     ``page``) bounds the region read to the first num_pages * page
-    slots, and every readable slot must lie below that bound.
+    slots, and every readable slot must lie below that bound. The write
+    slot comes from the device ``steps`` scalar: nothing is read on the
+    host.
     """
     cdt = cfg.compute_dtype
     b = tokens.shape[0]
     quant = 'k_scale' in cache
     pos = cache['length']
-    base, steps = cache['base'], cache['steps']
-    slot = base + steps
+    steps = cache['steps']
+    frontier = cache['base'] + steps                       # int32 scalar
+    slot = frontier.reshape(1).long()                      # [1] index
     valid = cache['dmask']
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
@@ -114,11 +144,7 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     # Per-row live bound for page skipping: before any decode write the
     # live slots are the ragged prompt lengths; afterwards every row
     # extends to the shared write frontier base + steps.
-    if steps > 0:
-        row_bound = torch.full((b,), slot, dtype=torch.int32,
-                               device=tokens.device)
-    else:
-        row_bound = pos.to(torch.int32)
+    row_bound = torch.where(steps > 0, frontier, pos).to(torch.int32)
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
 
     x = qembed(params['tok_emb'], tokens, cdt)             # [B, D]
@@ -144,39 +170,45 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
         if quant:
             k, sk = quantize_kv(k)
             v, sv = quantize_kv(v)
-            cache['k_scale'][li, :, slot] = sk
-            cache['v_scale'][li, :, slot] = sv
-        cache['k'][li, :, slot] = k.to(cache['k'].dtype)
-        cache['v'][li, :, slot] = v.to(cache['v'].dtype)
+            cache['k_scale'][li].index_copy_(1, slot, sk[:, None])
+            cache['v_scale'][li].index_copy_(1, slot, sv[:, None])
+        cache['k'][li].index_copy_(1, slot, k[:, None].to(cache['k'].dtype))
+        cache['v'][li].index_copy_(1, slot, v[:, None].to(cache['v'].dtype))
     x = _rmsnorm(x, params['final_norm'], cfg.norm_eps)
     logits = qdot(x, params['lm_head'], cdt, preferred=torch.float32)
-    cache['dmask'][:, slot] = active
-    cache['length'] = torch.where(active, pos + 1, pos)
-    cache['steps'] = steps + 1
+    cache['dmask'].index_copy_(1, slot, active[:, None])
+    cache['length'].copy_(torch.where(active, pos + 1, pos))
+    cache['steps'].add_(1)
     return logits, cache
 
 
 def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
-                  starts: Sequence[int], lens: Sequence[int],
-                  live: Sequence[bool], slots: Sequence[int],
-                  cfg: LlamaConfig, *, prompt_base: int):
+                  starts, lens, live, slots, cfg: LlamaConfig, *,
+                  prompt_base: int):
     """Process one prompt chunk per row straight into the batch cache
     (chunked prefill); returns (logits [G, vocab] f32 at each row's
     last valid chunk position, cache updated in place).
 
     tokens [G, C]: row j holds prompt positions [starts[j], starts[j]
     + lens[j]) of slot ``slots[j]``'s prompt, right-padded to C.
-    ``starts``/``lens``/``live``/``slots`` are host sequences (numpy
-    or lists; tensors are copied to the host). Rows with ``live``
-    False are inert: their cache rows, dmask and length keep their
-    bits, even when they repeat a live row's slot. ``prompt_base`` is
-    the prompt region size; all chunk writes land below it.
+    ``starts``/``lens``/``slots`` (int) and ``live`` (bool) are [G]
+    device tensors, as the reference takes them, or host sequences,
+    copied to the device once here; nothing is read back. Rows with
+    ``live`` False are inert: their cache rows, dmask and length keep
+    their bits, even when they repeat a live row's slot (their logits
+    are unspecified). ``prompt_base`` is the prompt region size; all
+    chunk writes land below it.
 
     Per layer the slot rows' prompt regions are gathered and padded by
     C slots of headroom (so a C-wide write at start <= base - 1 never
-    clamps), the chunk's K/V is written at ``starts`` (quantized for
-    int8 caches), attention runs over the region under the
-    query-offset causal rule, and live rows are scattered back.
+    clamps), the live rows' chunk K/V is written at ``starts``
+    (quantized for int8 caches), attention runs over the region under
+    the query-offset causal rule, and the rows are scattered back at
+    fixed shape G. A scatter with repeated slots has no defined winner,
+    so each row writes the bits of the live row that owns its slot,
+    when one does (its own bits otherwise): every write to one slot
+    carries the same bits, and a dead row with no live twin writes back
+    what it read.
     """
     cdt = cfg.compute_dtype
     g, c = tokens.shape
@@ -187,19 +219,18 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
     if not 0 < base <= s_max:
         raise ValueError(f'prompt_base {base} outside (0, {s_max}]')
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
-    starts_h, lens_h = _host_ints(starts), _host_ints(lens)
-    slots_h = _host_ints(slots)
-    live_h = np.asarray(live.cpu() if isinstance(live, torch.Tensor)
-                        else live, dtype=bool)
-    starts_d = torch.as_tensor(starts_h, dtype=torch.int32, device=dev)
-    slots_d = torch.as_tensor(slots_h, device=dev)
-    live_rows = np.nonzero(live_h)[0]
-    live_d = torch.as_tensor(live_rows, device=dev)
-    live_slots_d = torch.as_tensor(slots_h[live_rows], device=dev)
+    starts_d = _device_meta(starts, torch.int32, dev)
+    lens_d = _device_meta(lens, torch.int32, dev)
+    live_d = _device_meta(live, torch.bool, dev)
+    slots_d = _device_meta(slots, torch.int64, dev)
     positions = starts_d.long()[:, None] + torch.arange(c, device=dev)
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
-    # Chunk write targets inside the gathered [G, base + C] rows.
-    rows_idx = torch.arange(g, device=dev)[:, None]
+    rows_idx = torch.arange(g, device=dev)
+    # owner[j]: the live row whose slot row j names (the first, where
+    # live rows repeat one), else j itself.
+    same = (slots_d[:, None] == slots_d[None, :]) & live_d[None, :]
+    owner = torch.where(same.any(dim=1), same.to(torch.int32).argmax(dim=1),
+                        rows_idx)
 
     def gather_rows(layer_cache):
         rows = layer_cache[:, :base].index_select(0, slots_d)
@@ -207,8 +238,15 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
                           device=dev)
         return torch.cat([rows, pad], dim=1)
 
+    def write_chunk(rows, chunk):
+        # Live rows only: a dead row keeps what it read.
+        at = (rows_idx[:, None], positions)
+        mask = live_d.view((g,) + (1,) * (chunk.dim() - 1))
+        rows[at] = torch.where(mask, chunk.to(rows.dtype), rows[at])
+
     def scatter_rows(layer_cache, rows):
-        layer_cache[live_slots_d, :base] = rows[live_d, :base]
+        layer_cache[:, :base].index_copy_(
+            0, slots_d, rows[:, :base].index_select(0, owner))
 
     x = qembed(params['tok_emb'], tokens, cdt)             # [G, C, D]
     for li in range(cfg.n_layers):
@@ -226,12 +264,12 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
             rows_vs = gather_rows(cache['v_scale'][li])
             k, sk = quantize_kv(k)
             v, sv = quantize_kv(v)
-            rows_ks[rows_idx, positions] = sk
-            rows_vs[rows_idx, positions] = sv
+            write_chunk(rows_ks, sk)
+            write_chunk(rows_vs, sv)
         # A partial chunk leaves garbage in its tail: causally
         # invisible to every valid query, and dmask-false.
-        rows_k[rows_idx, positions] = k.to(rows_k.dtype)
-        rows_v[rows_idx, positions] = v.to(rows_v.dtype)
+        write_chunk(rows_k, k)
+        write_chunk(rows_v, v)
         o = chunk_prefill_attention(q, rows_k, rows_v, starts_d, rows_ks,
                                     rows_vs)
         x = x + qdot(o.reshape(g, c, -1), lp['wo'], cdt)
@@ -244,19 +282,25 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
             scatter_rows(cache['v_scale'][li], rows_vs)
 
     x = _rmsnorm(x, params['final_norm'], cfg.norm_eps)
-    last_idx = torch.as_tensor(np.maximum(lens_h - 1, 0), device=dev)
-    last = x[torch.arange(g, device=dev), last_idx]
+    last_idx = torch.clamp(lens_d - 1, min=0).long()
+    last = x[rows_idx, last_idx]
     logits = qdot(last, params['lm_head'], cdt, preferred=torch.float32)
 
     # dmask/length: a prompt's first chunk (start == 0) clears the
     # whole row before setting its own positions, so every slot of the
     # previous occupant becomes unreadable without a cache rewrite.
-    for j in live_rows:
-        sl, st, ln = int(slots_h[j]), int(starts_h[j]), int(lens_h[j])
-        if st == 0:
-            cache['dmask'][sl] = False
-        cache['dmask'][sl, st:st + ln] = True
-        cache['length'][sl] = st + ln
+    # Dead rows keep the values they read; the owner rule above makes
+    # the scatter's repeated slots agree.
+    col = torch.arange(s_max, device=dev)[None, :]
+    ends = starts_d + lens_d
+    cur = cache['dmask'].index_select(0, slots_d)
+    newly = (col >= starts_d[:, None]) & (col < ends[:, None])
+    fresh = cur & (starts_d != 0)[:, None] | newly
+    dmask = torch.where(live_d[:, None], fresh, cur)
+    cache['dmask'].index_copy_(0, slots_d, dmask.index_select(0, owner))
+    length = torch.where(live_d, ends,
+                         cache['length'].index_select(0, slots_d))
+    cache['length'].index_copy_(0, slots_d, length.index_select(0, owner))
     return logits, cache
 
 
@@ -264,29 +308,29 @@ def _sample(logits: torch.Tensor, temperature, top_k: int = 0,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Next tokens [B] int32 from logits [B, vocab].
 
-    ``temperature`` is a float or a per-row host array (<= 0 means
-    greedy for that row); ``top_k`` (<= 0 or >= vocab disables) keeps
-    every logit >= the top_k-th largest, ties at the threshold kept.
-    Sampled rows draw Gumbel noise from ``generator``; the draws differ
-    from ``jax.random``'s, so only greedy tokens compare across the two
-    packages."""
+    ``temperature`` (<= 0 means greedy for that row) is a float, a
+    per-row host array or a [B] device tensor, as in a captured tick.
+    Every row draws and ``torch.where`` picks greedy or sampled per row,
+    as the reference's traced temperature does, so nothing is read on
+    the host (the cost is one [B, vocab] draw per call). ``top_k`` (<= 0
+    or >= vocab disables) keeps every logit >= the top_k-th largest,
+    ties at the threshold kept. The Gumbel noise comes from
+    ``generator``; its draws differ from ``jax.random``'s, so only
+    greedy tokens compare across the two packages."""
     vocab = logits.shape[-1]
     if 0 < top_k < vocab:
         thresh = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < thresh, float('-inf'), logits)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    temp = np.broadcast_to(np.asarray(temperature, np.float32),
-                           (logits.shape[0],))
-    if not (temp > 0).any():
-        return greedy
-    t = torch.as_tensor(np.maximum(temp, 1e-6), device=logits.device)
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device=logits.device).expand(logits.shape[0])
     u = torch.rand(logits.shape, generator=generator,
                    device=logits.device).clamp_(min=1e-20)
     gumbel = -torch.log(-torch.log(u))
-    sampled = torch.argmax(logits.float() / t[:, None] + gumbel,
-                           dim=-1).to(torch.int32)
-    hot = torch.as_tensor(temp > 0, device=logits.device)
-    return torch.where(hot, sampled, greedy)
+    sampled = torch.argmax(
+        logits.float() / torch.clamp(temp, min=1e-6)[:, None] + gumbel,
+        dim=-1).to(torch.int32)
+    return torch.where(temp > 0, sampled, greedy)
 
 
 def _verify_logits(params: Dict, cache: Dict, fed: torch.Tensor,
@@ -298,20 +342,19 @@ def _verify_logits(params: Dict, cache: Dict, fed: torch.Tensor,
     row BEFORE attending, and attend through ``verify_attention`` over
     the first ``num_pages * page`` columns (default all). Returns the
     f32 logits [B, V, vocab]; the cache's K/V (and scales) change in
-    place, its dmask, length and steps do not."""
+    place, its dmask, length and steps do not. The segment start stays
+    on the device; the caller keeps the segment inside the cache (the
+    engine checks it against its host mirror of ``steps``)."""
     cdt = cfg.compute_dtype
     b, v_len = fed.shape
     dev = fed.device
     quant = 'k_scale' in cache
     n_kv, hd = cfg.n_kv_heads, cfg.head_dim
-    slot = cache['base'] + cache['steps']
+    frontier = cache['base'] + cache['steps']              # int32 scalar
     s_max = cache['k'].shape[2]
-    if slot + v_len > s_max:
-        raise ValueError(f'the verify segment [{slot}, {slot + v_len}) '
-                         f'runs past the cache ({s_max} slots)')
     page = page or decode_attn.default_page()
     n_cols = s_max if num_pages is None else min(num_pages * page, s_max)
-    seg = slice(slot, slot + v_len)
+    seg = frontier.long() + torch.arange(v_len, device=dev)  # [V]
     valid = cache['dmask']
     positions = (cache['length'].long()[:, None] +
                  torch.arange(v_len, device=dev)[None, :])
@@ -327,12 +370,12 @@ def _verify_logits(params: Dict, cache: Dict, fed: torch.Tensor,
         if quant:
             k, sk = quantize_kv(k)
             v, sv = quantize_kv(v)
-            cache['k_scale'][li, :, seg] = sk
-            cache['v_scale'][li, :, seg] = sv
-        cache['k'][li, :, seg] = k.to(cache['k'].dtype)
-        cache['v'][li, :, seg] = v.to(cache['v'].dtype)
+            cache['k_scale'][li].index_copy_(1, seg, sk)
+            cache['v_scale'][li].index_copy_(1, seg, sv)
+        cache['k'][li].index_copy_(1, seg, k.to(cache['k'].dtype))
+        cache['v'][li].index_copy_(1, seg, v.to(cache['v'].dtype))
         o = verify_attention(
-            q, cache['k'][li], cache['v'][li], valid, slot,
+            q, cache['k'][li], cache['v'][li], valid, frontier,
             cache['k_scale'][li] if quant else None,
             cache['v_scale'][li] if quant else None, n_cols=n_cols)
         x = x + qdot(o.reshape(b, v_len, -1), lp['wo'], cdt)
@@ -358,8 +401,9 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     [B] in [0, K] — how many of them are real (0: the row takes a
     plain one-token step). The segment [token, d_1 .. d_K] (V = K + 1)
     goes through ``_verify_logits``; position i's token m_i is sampled
-    from its logits with ``_sample`` (``temperature`` a float or a
-    per-row host array, ``top_k``, ``generator`` as there). Accepted:
+    from its logits with ``_sample`` (``temperature`` a float, a per-row
+    host array or a [B] device tensor, ``top_k``, ``generator`` as
+    there). Accepted:
     the longest prefix with d_{i+1} == m_i for i < spec_len (a = its
     length); the row emits d_1 .. d_a and then m_a, the model's own
     token for the first rejected position (the bonus token when all
@@ -368,8 +412,9 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     Rollback: of the segment columns only f_0 .. f_a become readable,
     and only for ``active`` rows ([B] bool, default all); the rejected
     candidates' K/V stay dmask-false for good. Active rows' length
-    advances by a + 1; ``steps`` (a host integer) by V for every row.
-    No host sync: every result stays on the device.
+    advances by a + 1; ``steps`` (the device scalar) by V for every row.
+    No host sync: every result stays on the device, the cache's
+    tensors are updated in place.
 
     Returns (emit [B, V] int32 — valid up to counts; counts [B] int32 —
     a + 1 for active rows, 0 otherwise; next_tok [B] int32 — m_a, or
@@ -402,12 +447,12 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     # this tick holds its first token until it joins the active mask).
     next_tok = torch.where(active, next_tok, tokens)
 
-    slot = cache['base'] + cache['steps']
-    cache['dmask'][:, slot:slot + v_len] = active[:, None] & (jidx <=
-                                                              a[:, None])
+    seg = (cache['base'] + cache['steps']).long() + jidx[0]
+    cache['dmask'].index_copy_(1, seg, active[:, None] & (jidx <=
+                                                          a[:, None]))
     pos = cache['length']
-    cache['length'] = torch.where(active, pos + a + 1, pos).to(torch.int32)
-    cache['steps'] += v_len
+    cache['length'].copy_(torch.where(active, pos + a + 1, pos))
+    cache['steps'].add_(v_len)
     return emit, counts, next_tok, cache
 
 
@@ -471,7 +516,7 @@ def prefill(params: Dict, tokens: torch.Tensor, lengths, cfg: LlamaConfig,
     cache.update(
         length=lengths,
         dmask=torch.arange(s_max, device=dev)[None, :] < lengths[:, None],
-        base=s, steps=0)
+        base=s, steps=torch.zeros((), dtype=torch.int32, device=dev))
     return logits, cache
 
 

@@ -155,8 +155,9 @@ def rope_tables(positions: torch.Tensor, d: int, theta: float):
     """(cos, sin) [..., d/2] in f32 for integer ``positions``."""
     exps = -torch.arange(0, d, 2, dtype=torch.float32,
                          device=positions.device) / d
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # A fill, not a copy from the host: this runs inside captured ticks.
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     angles = positions[..., None].float() * freqs
     return torch.cos(angles), torch.sin(angles)
 

@@ -11,9 +11,26 @@ in flight never credits tokens to a slot's next occupant; admission
 that guarantees every admitted request finishes, with a cache reset
 when the decode region is exhausted and no slot is occupied.
 
-Double buffering comes from CUDA's asynchronous launches: ``step()``
-launches tick N+1 before it copies tick N's tokens to the host, so the
-host work of one tick overlaps the device work of the next.
+Each tick is one program, keyed as the reference keys its jitted tick
+programs: decode ``(n, num_pages)``, mixed ``(n, num_pages, spec)``
+(prefill chunk rows fused with the decode scan or the verify pass;
+``(0, None, 0)`` prefills only) and verify ``(num_pages)``. On the card
+``warmup()`` captures one CUDA graph per key the reference's warmup
+compiles, all in one memory pool, over static device buffers (the
+cache, the token vector, the inputs below); a tick is then one copy of
+its small inputs into those buffers and one replay. A key warmup did
+not capture raises: nothing is captured late or run eagerly. On the CPU
+the same tick bodies run eagerly.
+
+Double buffering: ``step()`` launches tick N+1 before it reads tick N.
+A tick's inputs (active mask, temperatures, chunk metadata, drafts)
+are staged in one of two pinned host buffers and copied to the static
+device inputs in stream order; its outputs (tokens, verify counts,
+first tokens) are copied, in stream order, out of the program's static
+output into one of two pinned host buffers, with an event that
+``_process_tick`` waits on. So a replay never overwrites what the host
+has yet to read, and the host work of one tick overlaps the device work
+of the next.
 
 Speculative decoding (``spec_decode`` / ``SKYTPU_SPEC_DECODE``): a
 host-side prompt-lookup proposer drafts up to ``spec_k`` tokens per
@@ -31,6 +48,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -43,6 +61,7 @@ from skypilot_tpu_torch.models import inference
 from skypilot_tpu_torch.models.llama import LlamaConfig
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import decode_attention as decode_attn
+from skypilot_tpu_torch.ops import split_kv
 from skypilot_tpu_torch.utils import env_registry
 from skypilot_tpu_torch.utils import lifecycle
 from skypilot_tpu_torch.utils.device import resolve_device
@@ -259,15 +278,55 @@ class ServingEngine:
         self._cancel_lock = threading.Lock()
         # Makes submit()'s duplicate check and append one step.
         self._submit_lock = threading.Lock()
-        # Sampled (temperature > 0) rows draw from this generator; greedy
-        # rows never touch it.
+        # Sampled (temperature > 0) rows draw from this generator (every
+        # tick draws; greedy rows ignore the draw).
         self._gen = torch.Generator(device=self.device).manual_seed(0)
-        self.cache = self._make_empty()
+        # One cache for the engine's lifetime: resets restore it in
+        # place, so captured programs keep pointing at it.
+        self.cache = inference.make_cache(
+            cfg, batch_size, self.max_seq, base=max_prompt,
+            kv_quant=kv_quant, device=self.device)
         # Per-slot current token, device-resident: prefill-sampled
         # first tokens flow into the decode chain without a host sync.
         self._tokens_dev = torch.zeros((batch_size,), dtype=torch.int32,
                                        device=self.device)
         self._temps = np.full((batch_size,), temperature, np.float32)
+        # The tick programs' static inputs: one int32 device buffer,
+        # viewed per field (temperatures as f32), filled each tick from
+        # one of two host staging buffers (pinned on the card).
+        g, c, b = self._prefill_rows, self.prefill_chunk, batch_size
+        self._in_layout = (('active', (b,)), ('temps', (b,)),
+                           ('ctoks', (g, c)), ('cstarts', (g,)),
+                           ('clens', (g,)), ('clive', (g,)),
+                           ('cslots', (g,)), ('clast', (g,)),
+                           ('drafts', (b, self.spec_k)), ('spec_len', (b,)))
+        n_in = sum(int(np.prod(shape)) for _, shape in self._in_layout)
+        cuda = self.device.type == 'cuda'
+        self._in_dev = torch.zeros((n_in,), dtype=torch.int32,
+                                   device=self.device)
+        self._in = self._views(self._in_dev)
+        self._stage = [torch.zeros((n_in,), dtype=torch.int32,
+                                   pin_memory=cuda) for _ in range(2)]
+        # The largest packed output: a decode chunk's or a verify
+        # segment's tokens (+ counts), then the first tokens.
+        n_out = b * max(self.decode_chunk, self._spec_v + 1) + g
+        self._out = [torch.zeros((n_out,), dtype=torch.int32,
+                                 pin_memory=cuda) for _ in range(2)]
+        self._stage_events = [torch.cuda.Event() if cuda else None
+                              for _ in range(2)]
+        self._out_events = [torch.cuda.Event() if cuda else None
+                            for _ in range(2)]
+        self._ring = 0
+        # Captured tick programs by key (on the card; None = run the
+        # bodies eagerly, the CPU's only path). Tests and chip_smoke.py
+        # set it to None to time the eager ticks.
+        self._graphs: Optional[Dict[tuple, _build.Captured]] = (
+            {} if cuda else None)
+        self._graph_pool = None
+        # Graphs captured, and the seconds warmup() spent capturing
+        # (the counterpart of the reference's compiled-program count).
+        self.graph_captures = 0
+        self.graph_capture_s = 0.0
         self._warming = False
         # Work accounting outside warmup: decode steps and prefill ticks
         # dispatched (each runs every layer's kernel once), and the most
@@ -276,21 +335,29 @@ class ServingEngine:
         self.prefill_ticks = 0
         self.max_tick_prefill_tokens = 0
 
-    def _make_empty(self) -> Dict:
-        return inference.make_cache(self.cfg, self.batch_size,
-                                    self.max_seq, base=self.max_prompt,
-                                    kv_quant=self.kv_quant,
-                                    device=self.device)
+    def _views(self, flat: torch.Tensor) -> Dict[str, Any]:
+        """The input fields as views of ``flat`` (a tensor or an
+        array), in ``_in_layout`` order; temperatures as f32."""
+        views, off = {}, 0
+        f32 = torch.float32 if isinstance(flat, torch.Tensor) else \
+            np.float32
+        for name, shape in self._in_layout:
+            n = int(np.prod(shape))
+            view = flat[off:off + n].reshape(shape)
+            views[name] = view.view(f32) if name == 'temps' else view
+            off += n
+        return views
 
     # ------------------------------------------------------------------
     def warmup(self) -> None:
-        """Build the CUDA kernels (on the card) and serve two synthetic
-        requests — one full-length prompt, one shorter than a chunk —
-        through every host path, then reset. There is no compile cache
-        to fill beyond the kernel build. Speculation stays off while
-        warming up."""
+        """Build the CUDA kernels and capture every tick program a run
+        can dispatch (on the card), then serve two synthetic requests —
+        one full-length prompt, one shorter than a chunk — through every
+        host path, and reset. Speculation stays off while warming up."""
         if self.device.type == 'cuda':
             _build.build()
+        if self._graphs is not None:
+            self._capture()
         rng = np.random.default_rng(0)
         reqs = [
             Request(('warmup', 0),
@@ -308,14 +375,86 @@ class ServingEngine:
             self._warming = False
         self.reset()
 
+    def _tick_keys(self) -> List[tuple]:
+        """Every tick program a run can dispatch: the reference's
+        warmup() key set (skypilot_tpu/models/serving_engine.py:955-1050).
+        Decode chunks fold to powers of two as step() folds them; the
+        main chunk runs at any occupancy (page-stride enumeration: the
+        page count changes only at page boundaries), tail chunks only
+        near region exhaustion, where the remaining slots lie in
+        [n, 2n). Verify ticks advance the frontier by V columns, so with
+        speculation on every steps value is walked (stride 1) and the
+        verify page counts over [0, cap - V] added."""
+        n = self.decode_chunk
+        while n & (n - 1):
+            n &= n - 1
+        chunk = n
+
+        def count_for(steps_done: int, n_: int) -> int:
+            return decode_attn.num_pages_for(
+                self.max_prompt + steps_done + n_, self._page,
+                self._total_pages, base_pages=self._base_pages)
+
+        cap = self.decode_capacity()
+        stride = 1 if self.spec_decode else max(1, self._page)
+        pairs = {(chunk, count_for(s, chunk))
+                 for s in range(0, max(cap - chunk, 0) + 1, stride)}
+        pairs.add((chunk, count_for(max(cap - chunk, 0), chunk)))
+        while n > 1:
+            n //= 2
+            lo, hi = max(0, cap - 2 * n + 1), max(0, cap - n)
+            walk = range(lo, hi + 1) if self.spec_decode else (lo, hi)
+            pairs.update((n, count_for(s, n)) for s in walk)
+        pairs = sorted(pairs)
+        keys = [('decode', n_, p) for n_, p in pairs]
+        keys.append(('mixed', 0, None, 0))
+        keys += [('mixed', n_, p, 0) for n_, p in pairs]
+        if self.spec_decode:
+            v = self._spec_v
+            counts = sorted({count_for(s, v)
+                             for s in range(0, max(cap - v, 0) + 1)})
+            keys += [('verify', p) for p in counts]
+            keys += [('mixed', 0, p, v) for p in counts]
+        return keys
+
+    def _capture(self) -> None:
+        """Capture one CUDA graph per tick key not captured yet, all in
+        one memory pool. One eager tick of each kind first, on a side
+        stream, loads every kernel and library the programs launch; it
+        dirties the cache, which is then restored in place."""
+        keys = [k for k in self._tick_keys() if k not in self._graphs]
+        if not keys:
+            return
+        t0 = time.perf_counter()
+        rep = self.cfg.n_heads // self.cfg.n_kv_heads
+        split_kv.reserve(self.device, self.batch_size * self.cfg.n_kv_heads *
+                         -(-rep * self._spec_v // split_kv.TILE))
+        self._in_dev.zero_()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for kind in ('decode', 'mixed', 'verify'):
+                first = next((k for k in keys if k[0] == kind), None)
+                if first is not None:
+                    self._tick_body(first)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        inference.reset_cache(self.cache)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        for key in keys:
+            self._graphs[key] = _build.capture(
+                functools.partial(self._tick_body, key), self._graph_pool,
+                generators=(self._gen,))
+            self.graph_captures += 1
+        torch.cuda.synchronize(self.device)
+        self.graph_capture_s += time.perf_counter() - t0
+
     def reset(self) -> None:
-        """Drop all cache state. Only valid with nothing in flight."""
+        """Drop all cache state (in place: every cache tensor keeps its
+        address). Only valid with nothing in flight."""
         if self.num_active() or self.queue or self._pending is not None:
             raise RuntimeError('reset() with requests in flight')
-        # Drop the old cache before building the new one so the two
-        # never coexist on the device.
-        self.cache = None
-        self.cache = self._make_empty()
+        inference.reset_cache(self.cache)
         self._steps_done = 0
         self.results = {}
 
@@ -404,9 +543,8 @@ class ServingEngine:
                 if (self.num_active() == 0 and not admitted and
                         self._pending is None and self._steps_done):
                     # Region exhausted with nothing running: fresh
-                    # cache (old one dropped first), then re-check.
-                    self.cache = None
-                    self.cache = self._make_empty()
+                    # cache (restored in place), then re-check.
+                    inference.reset_cache(self.cache)
                     self._steps_done = 0
                     continue
                 break  # wait for running requests to drain
@@ -661,22 +799,88 @@ class ServingEngine:
     def has_pending(self) -> bool:
         return self._pending is not None
 
-    def _decode_scan(self, active: torch.Tensor, n: int, num_pages: int):
+    def _decode_scan(self, tok: torch.Tensor, active: torch.Tensor,
+                     temps: torch.Tensor, n: int, num_pages: int):
         """``n`` decode steps feeding each sampled token forward;
         inactive rows freeze their token (a slot whose prefill finished
         this tick holds its first token until it joins the active mask
         next tick). Returns (tokens [n, B], last tokens [B])."""
-        tok = self._tokens_dev
         outs = []
         for _ in range(n):
-            logits, self.cache = inference.decode_step(
+            logits, _ = inference.decode_step(
                 self.params, self.cache, tok, self.cfg, active=active,
                 num_pages=num_pages, page=self._page)
-            nxt = inference._sample(logits, self._temps, self.top_k,
-                                    self._gen)
+            nxt = inference._sample(logits, temps, self.top_k, self._gen)
             tok = torch.where(active, nxt, tok)
             outs.append(tok)
         return torch.stack(outs), tok
+
+    def _tick_body(self, key: tuple) -> torch.Tensor:
+        """The tick program of ``key`` over the static buffers: it
+        updates the cache and the token vector in place and returns its
+        outputs packed in one int32 tensor — the tokens (a decode chunk's
+        [n, B] or a verify segment's [B, V]), then the verify counts [B],
+        then the chunk rows' first tokens [G] (mixed ticks). It reads no
+        device value on the host, so it runs eagerly or under capture
+        alike."""
+        kind = key[0]
+        if kind == 'decode':
+            n, num_pages, spec = key[1], key[2], 0
+        elif kind == 'mixed':
+            n, num_pages, spec = key[1:]
+        else:
+            n, num_pages, spec = 0, key[1], self._spec_v
+        inp = self._in
+        active = inp['active'] != 0
+        temps = inp['temps']
+        cur = self._tokens_dev
+        outs, firsts = [], None
+        if kind == 'mixed':
+            live = inp['clive'] != 0
+            cslots = inp['cslots']
+            logits, _ = inference.prefill_chunk(
+                self.params, self.cache, inp['ctoks'], inp['cstarts'],
+                inp['clens'], live, cslots, self.cfg,
+                prompt_base=self.max_prompt)
+            firsts = inference._sample(
+                logits, temps.index_select(0, cslots.long()), self.top_k,
+                self._gen)
+            # The reference's static unroll over the chunk rows: a row
+            # whose chunk completes its prompt folds its first token
+            # into the token vector (the slot decodes from next tick).
+            take = live & (inp['clast'] != 0)
+            slot_ids = torch.arange(self.batch_size, device=self.device)
+            for j in range(self._prefill_rows):
+                cur = torch.where(take[j] & (slot_ids == cslots[j]),
+                                  firsts[j], cur)
+        if spec:
+            # Slots whose prefill finished above are inactive here: they
+            # hold their first token until they join next tick.
+            emit, counts, cur, _ = inference.verify_step(
+                self.params, self.cache, cur, inp['drafts'],
+                inp['spec_len'], self.cfg, temps, self.top_k, self._gen,
+                active=active, num_pages=num_pages, page=self._page)
+            outs += [emit.reshape(-1), counts]
+        elif n:
+            toks, cur = self._decode_scan(cur, active, temps, n, num_pages)
+            outs.append(toks.reshape(-1))
+        self._tokens_dev.copy_(cur)
+        if firsts is not None:
+            outs.append(firsts)
+        return torch.cat(outs)
+
+    def _launch(self, key: tuple) -> torch.Tensor:
+        """Run tick program ``key``: replay its graph, or run its body
+        eagerly where there are no graphs. Returns its packed output."""
+        if self._graphs is None:
+            return self._tick_body(key)
+        graph = self._graphs.get(key)
+        if graph is None:
+            raise RuntimeError(
+                f'tick program {key} was not captured: warmup() captures '
+                f'the {len(self._tick_keys())} keys a run can dispatch '
+                f'({len(self._graphs)} captured)')
+        return graph.replay()
 
     def _dispatch_tick(self) -> Optional[Dict[str, Any]]:
         active_list = [s is not None and s.phase == 'decode'
@@ -718,103 +922,113 @@ class ServingEngine:
                 n &= n - 1
         if not prefilling and n == 0 and not run_spec:
             return None
-        if run_spec:
-            drafts_np = np.zeros((self.batch_size, self.spec_k), np.int32)
-            slen_np = np.zeros((self.batch_size,), np.int32)
+        spec = self._spec_v if run_spec else 0
+        if spec and self.remaining_slots() < spec:
+            # The device reads the segment start from the cache; the
+            # host mirror of steps is where the bound is checked.
+            raise RuntimeError(
+                f'the verify segment at {self.max_prompt + self._steps_done}'
+                f' runs past the cache ({self.max_seq} slots)')
+        num_pages = self._num_pages(spec or n) if spec or n else None
+        if not prefilling:
+            key = (('verify', num_pages) if spec else
+                   ('decode', n, num_pages))
+        else:
+            key = ('mixed', n, num_pages, spec)
+
+        # Stage this tick's inputs in the staging buffer the tick before
+        # the previous one used (its copy has run: that tick was read).
+        ring = self._ring
+        self._ring ^= 1
+        cuda = self.device.type == 'cuda'
+        if cuda:
+            self._stage_events[ring].synchronize()
+        stage = self._stage[ring]
+        stage.numpy()[:] = 0
+        host = self._views(stage.numpy())
+        host['active'][:] = active_list
+        host['temps'][:] = self._temps
+        if spec:
             for i, st in spec_rows:
                 d = st.draft[:self.spec_k]
-                drafts_np[i, :len(d)] = d
-                slen_np[i] = len(d)
+                host['drafts'][i, :len(d)] = d
+                host['spec_len'][i] = len(d)
                 st.draft = None            # consumed by this tick
             if not self._warming:
-                self.spec_proposed_total += int(slen_np.sum())
+                self.spec_proposed_total += int(host['spec_len'].sum())
                 self.spec_ticks += 1
                 self.spec_row_steps += sum(active_list)
-
-        firsts = None
         chunk_meta: List[Dict[str, Any]] = []
+        budget_used = 0
         if prefilling:
-            g, c = self._prefill_rows, self.prefill_chunk
-            ctoks = np.zeros((g, c), np.int32)
-            cstarts = np.zeros((g,), np.int32)
-            clens = np.ones((g,), np.int32)    # dead rows: len 1 slack
-            clive = np.zeros((g,), bool)
-            cslots = np.zeros((g,), np.int32)
-            budget_used = 0
-            for j, (slot_idx, st) in enumerate(prefilling[:g]):
-                ln = min(c, st.prompt_len - st.prefill_pos)
-                ctoks[j, :ln] = st.prompt[st.prefill_pos:
-                                          st.prefill_pos + ln]
-                cstarts[j] = st.prefill_pos
-                clens[j] = ln
-                clive[j] = True
-                cslots[j] = slot_idx
+            host['clens'][:] = 1               # dead rows: len 1 slack
+            for j, (slot_idx, st) in enumerate(
+                    prefilling[:self._prefill_rows]):
+                ln = min(self.prefill_chunk, st.prompt_len - st.prefill_pos)
+                last = st.prefill_pos + ln == st.prompt_len
+                host['ctoks'][j, :ln] = st.prompt[st.prefill_pos:
+                                                  st.prefill_pos + ln]
+                host['cstarts'][j] = st.prefill_pos
+                host['clens'][j] = ln
+                host['clive'][j] = 1
+                host['clast'][j] = last
+                host['cslots'][j] = slot_idx
                 budget_used += ln
-                chunk_meta.append({
-                    'row': j, 'slot': slot_idx, 'epoch': st.epoch,
-                    'n': ln, 'last': st.prefill_pos + ln == st.prompt_len})
-            logits, self.cache = inference.prefill_chunk(
-                self.params, self.cache,
-                torch.as_tensor(ctoks, device=self.device), cstarts, clens,
-                clive, cslots, self.cfg, prompt_base=self.max_prompt)
-            firsts = inference._sample(logits, self._temps[cslots],
-                                       self.top_k, self._gen)
-            for m in chunk_meta:
-                st = self.slots[m['slot']]
-                st.prefill_pos += m['n']
-                if m['last']:
-                    # The first token joins the device-resident chain;
-                    # the slot decodes from the next tick on.
-                    self._tokens_dev[m['slot']] = firsts[m['row']]
-                    st.phase = 'decode'
-            if not self._warming:
-                self.prefill_ticks += 1
-                self.max_tick_prefill_tokens = max(
-                    self.max_tick_prefill_tokens, budget_used)
-        toks = counts = None
-        if run_spec:
-            # Slots whose prefill finished above are inactive here: they
-            # hold their first token until they join next tick.
-            toks, counts, self._tokens_dev, self.cache = \
-                inference.verify_step(
-                    self.params, self.cache, self._tokens_dev,
-                    torch.as_tensor(drafts_np, device=self.device),
-                    torch.as_tensor(slen_np, device=self.device), self.cfg,
-                    self._temps, self.top_k, self._gen,
-                    active=torch.as_tensor(active_list, device=self.device),
-                    num_pages=self._num_pages(self._spec_v),
-                    page=self._page)
-        elif n:
-            active = torch.as_tensor(active_list, device=self.device)
-            toks, self._tokens_dev = self._decode_scan(
-                active, n, self._num_pages(n))
-            if not self._warming:
-                self.decode_steps_total += n
-        self._steps_done += self._spec_v if run_spec else n
+                chunk_meta.append({'row': j, 'slot': slot_idx,
+                                   'epoch': st.epoch, 'n': ln,
+                                   'last': last})
+        self._in_dev.copy_(stage, non_blocking=cuda)
+        if cuda:
+            self._stage_events[ring].record()
+        packed = self._launch(key)
+        # Out of the program's static output before it can run again.
+        out = self._out[ring][:packed.numel()]
+        out.copy_(packed, non_blocking=cuda)
+        if cuda:
+            self._out_events[ring].record()
+
+        for m in chunk_meta:
+            st = self.slots[m['slot']]
+            st.prefill_pos += m['n']
+            if m['last']:
+                # The first token is already in the device token vector;
+                # the slot decodes from the next tick on.
+                st.phase = 'decode'
+        if prefilling and not self._warming:
+            self.prefill_ticks += 1
+            self.max_tick_prefill_tokens = max(
+                self.max_tick_prefill_tokens, budget_used)
+        if n and not self._warming:
+            self.decode_steps_total += n
+        self._steps_done += spec or n
         # Which occupant each decoded column belongs to: by the time
         # this tick syncs, a slot may have been freed and recycled.
         snapshot = [(i, s.epoch) for i, s in enumerate(self.slots)
                     if s is not None and active_list[i]]
-        return {'toks': toks, 'n': n, 'snapshot': snapshot,
-                'chunks': chunk_meta, 'firsts': firsts,
-                'spec': self._spec_v if run_spec else 0, 'counts': counts}
+        return {'out': out, 'event': self._out_events[ring], 'n': n,
+                'spec': spec, 'snapshot': snapshot, 'chunks': chunk_meta}
 
     def _process_tick(self, entry: Optional[Dict[str, Any]]) -> int:
         if entry is None:
             return 0
         emitted = 0
         fresh_by_slot: Dict[int, List[int]] = {}
+        if entry['event'] is not None:
+            entry['event'].synchronize()                     # the sync
+        # The packed outputs (_tick_body), read before the buffer is
+        # staged again two ticks on.
+        out = entry['out'].numpy().copy()
+        b, n, spec = self.batch_size, entry['n'], entry['spec']
+        n_toks = b * spec if spec else b * n
+        firsts_host = out[n_toks + (b if spec else 0):]
         # Completed prefill chunks first: their first token was sampled
         # before this tick's decode scan.
-        firsts_host = None
         for m in entry['chunks']:
             if not m['last']:
                 continue
             state = self.slots[m['slot']]
             if state is None or state.epoch != m['epoch']:
                 continue          # freed/recycled mid-flight
-            if firsts_host is None:
-                firsts_host = entry['firsts'].cpu().numpy()   # the sync
             tok = int(firsts_host[m['row']])
             state.generated.append(tok)
             fresh_by_slot[m['slot']] = [tok]
@@ -823,8 +1037,8 @@ class ServingEngine:
             # Verify tick: row b surfaced counts[b] tokens, its accepted
             # drafts and then the model's own token; the rest of the row
             # is rejected-candidate garbage, rolled back on the device.
-            toks_host = entry['toks'].cpu().numpy()     # [B, V] — the sync
-            counts_host = entry['counts'].cpu().numpy()
+            toks_host = out[:n_toks].reshape(b, spec)
+            counts_host = out[n_toks:n_toks + b]
             tick_acc = 0
             for slot_idx, epoch in entry['snapshot']:
                 state = self.slots[slot_idx]
@@ -860,8 +1074,8 @@ class ServingEngine:
                 else:
                     self._spec_misses += 1
                 self._spec_dry = self._spec_misses >= _SPEC_DRY_AFTER
-        elif entry['n']:
-            toks_host = entry['toks'].cpu().numpy()   # [n, B] — the sync
+        elif n:
+            toks_host = out[:n_toks].reshape(n, b)
             for slot_idx, epoch in entry['snapshot']:
                 state = self.slots[slot_idx]
                 if state is None or state.epoch != epoch:
@@ -869,7 +1083,7 @@ class ServingEngine:
                 if self._is_done(state):
                     continue
                 fresh = fresh_by_slot.setdefault(slot_idx, [])
-                for t in range(entry['n']):
+                for t in range(n):
                     tok = int(toks_host[t, slot_idx])
                     state.generated.append(tok)
                     fresh.append(tok)

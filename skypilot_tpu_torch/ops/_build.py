@@ -12,7 +12,11 @@ build raises with the compiler's output: there is no fallback.
 
 Launch counts live here too: every kernel wrapper adds one to its
 entry where it launches its kernel, and nowhere else, so a run can
-show that it went through the kernels.
+show that it went through the kernels. A wrapper's Python runs once,
+when a CUDA graph captures its launch; ``capture`` therefore keeps the
+counts that one capture made (and takes them back out of
+``LAUNCHES``), and ``Captured.replay`` adds them at every replay: the
+counts stay launches that ran.
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
+
+import torch
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -145,3 +151,42 @@ def check(status: int, name: str) -> None:
     if status != 0:
         raise RuntimeError(f'{name} kernel launch failed: CUDA error '
                            f'{status}')
+
+
+class Captured:
+    """A CUDA graph with the output its capture returned (static: every
+    replay rewrites it) and the kernel launches the capture counted."""
+
+    def __init__(self, graph: 'torch.cuda.CUDAGraph', out,
+                 launches: collections.Counter) -> None:
+        self.graph = graph
+        self.out = out
+        self.launches = launches
+
+    def replay(self):
+        """Launch the graph on the current stream; returns ``out``."""
+        self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return self.out
+
+
+def capture(body: Callable[[], object], pool=None,
+            generators: Sequence[torch.Generator] = ()) -> Captured:
+    """Capture ``body()`` into a CUDA graph (memory from ``pool``, a
+    ``torch.cuda.graph_pool_handle()`` shared by graphs that never run
+    concurrently). Each of ``generators`` is registered with the graph,
+    so a replay advances it instead of repeating one draw. The launches
+    counted during the capture move from ``LAUNCHES`` to the returned
+    graph; a failed capture raises."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    before = LAUNCHES.copy()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = body()
+    finally:
+        counted = LAUNCHES - before
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
+    return Captured(graph, out, counted)

@@ -25,17 +25,22 @@
 // NaN garbage left by recycled rows and rejected candidates cannot
 // reach the accumulator, and masked probabilities are zeroed
 // explicitly. A row whose dmask is all false still sees its own
-// segment. Block row r is segment position r / rep of query head
-// kh * rep + r % rep. The type of q picks one of two kernels:
+// segment. The segment start `seg` is read from device memory (the
+// engine's write frontier base + steps), never passed by the host, so
+// a launch captured in a CUDA graph follows it from replay to replay;
+// the launch geometry depends only on the static n_cols, and each
+// block works out `end` itself. Block row r is segment position r / rep
+// of query head kh * rep + r % rep. The type of q picks one of two
+// kernels:
 //
 // bf16 (verify_attention_tc_kernel, bf16 or int8 cache; split_kv.cuh)
 // fills the card and keeps the loads in flight: the grid is (n_split,
 // n_kv x row chunks, B), n_split chosen by the caller so that the blocks
 // cover the SMs at least twice (one block per (kv head, row) left half
 // of the 132 SMs idle), each block taking the n_split-th share of the
-// 64-column tiles below `end`. The rep * V rows of a GQA group are
-// padded to 64-row warpgroup tiles, one or two warpgroups per block
-// sharing each K/V tile (128 rows; a wider segment takes more row
+// 64-column tiles below `end`. The rep * V rows of a GQA
+// group are padded to 64-row warpgroup tiles, one or two warpgroups per
+// block sharing each K/V tile (128 rows; a wider segment takes more row
 // chunks, each reading the tiles again), and both products run on
 // wgmma, the rows' query fragments held in registers; tiles t + 1 and
 // t + 2 are in flight (cp.async; int8: t + 1, through registers) while
@@ -156,8 +161,9 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(
     const __nv_bfloat16* __restrict__ k_scale,  // [B, S, n_kv] or null
     const __nv_bfloat16* __restrict__ v_scale,  // [B, S, n_kv] or null
     const bool* __restrict__ valid,             // [B, S]
+    const int* __restrict__ seg_ptr,            // segment start
     T* __restrict__ out,                        // [B, V, H, D]
-    int V, int S, int H, int n_kv, int D, int seg, int end, float scale) {
+    int V, int S, int H, int n_kv, int D, int n_cols, float scale) {
   extern __shared__ float4 smem4[];
   __shared__ float m_sm[kMaxRows];
   __shared__ float l_sm[kMaxRows];
@@ -170,6 +176,8 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
+  const int seg = *seg_ptr;
+  const int end = min(n_cols, seg + V);
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int rep = H / n_kv;
@@ -333,8 +341,9 @@ size_t smem_bytes(int rows, int D) {
 template <typename KV>
 int launch_f32(const void* q, const void* k, const void* v,
                const void* k_scale, const void* v_scale, const void* valid,
-               void* out, int B, int V, int S, int H, int n_kv, int D,
-               int seg, int end, float scale, cudaStream_t stream) {
+               const void* seg, void* out, int B, int V, int S, int H,
+               int n_kv, int D, int n_cols, float scale,
+               cudaStream_t stream) {
   const int rows = H / n_kv * V;
   const size_t smem = smem_bytes(rows < kMaxRows ? rows : kMaxRows, D);
   auto kernel = verify_attention_kernel<float, KV>;
@@ -349,8 +358,8 @@ int launch_f32(const void* q, const void* k, const void* v,
       static_cast<const KV*>(v),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const __nv_bfloat16*>(v_scale),
-      static_cast<const bool*>(valid), static_cast<float*>(out), V, S, H,
-      n_kv, D, seg, end, scale);
+      static_cast<const bool*>(valid), static_cast<const int*>(seg),
+      static_cast<float*>(out), V, S, H, n_kv, D, n_cols, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,10 +381,11 @@ __global__ void __launch_bounds__(split_kv::kMaxWg * split_kv::kWg)
         const __nv_bfloat16* __restrict__ k_scale,  // [B, S, n_kv] (int8)
         const __nv_bfloat16* __restrict__ v_scale,  // [B, S, n_kv] (int8)
         const bool* __restrict__ valid,             // [B, S]
+        const int* __restrict__ seg_ptr,            // segment start
         __nv_bfloat16* __restrict__ out,            // [B, V, H, D]
         float* __restrict__ part_ml, float* __restrict__ part_acc,
         int* __restrict__ counters, int V, int S, int H, int n_kv,
-        int seg, int end, int chunks, float scale) {
+        int n_cols, int chunks, float scale) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw +
       ((1024 - (flash_tc::smem_u32(smem_raw) & 1023)) & 1023);
@@ -389,7 +399,12 @@ __global__ void __launch_bounds__(split_kv::kMaxWg * split_kv::kWg)
   const int rb = blockDim.x / split_kv::kWg * 64;  // rows per block
   const int r0 = chunk * rb;
   const int n_rows = min(rb, rep * V - r0);
-  const int n_tiles = (end + split_kv::kBk - 1) / split_kv::kBk;
+  // The split count comes from the static n_cols; the splits then share
+  // the tiles below `end` (columns past the segment hold nothing any
+  // query sees), so a split left without a tile writes an empty partial.
+  const int seg = *seg_ptr;
+  const int end = min(n_cols, seg + V);
+  const int n_tiles = (max(end, 0) + split_kv::kBk - 1) / split_kv::kBk;
   const float scale2 = scale * flash_tc::kLog2e;  // scores in log2 units
   const bool* vrow = valid + (size_t)b * S;
   // Block row r: segment position (r0 + r) / rep, head kh * rep +
@@ -422,9 +437,9 @@ __global__ void __launch_bounds__(split_kv::kMaxWg * split_kv::kWg)
 template <bool kInt8>
 int launch_tc(const void* q, const void* k, const void* v,
               const void* k_scale, const void* v_scale, const void* valid,
-              void* out, void* part_ml, void* part_acc, void* counters,
-              int B, int V, int S, int H, int n_kv, int D, int seg, int end,
-              int n_split, int rows_per_block, float scale,
+              const void* seg, void* out, void* part_ml, void* part_acc,
+              void* counters, int B, int V, int S, int H, int n_kv, int D,
+              int n_cols, int n_split, int rows_per_block, float scale,
               cudaStream_t stream) {
   const int chunks = (H / n_kv * V + rows_per_block - 1) / rows_per_block;
   const int warpgroups = rows_per_block / 64;
@@ -441,10 +456,10 @@ int launch_tc(const void* q, const void* k, const void* v,
         static_cast<const __nv_bfloat16*>(q), k, v,
         static_cast<const __nv_bfloat16*>(k_scale),
         static_cast<const __nv_bfloat16*>(v_scale),
-        static_cast<const bool*>(valid), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(part_ml), static_cast<float*>(part_acc),
-        static_cast<int*>(counters), V, S, H, n_kv, seg, end, chunks,
-        scale);
+        static_cast<const bool*>(valid), static_cast<const int*>(seg),
+        static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_ml),
+        static_cast<float*>(part_acc), static_cast<int*>(counters), V, S, H,
+        n_kv, n_cols, chunks, scale);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -458,19 +473,21 @@ int launch_tc(const void* q, const void* k, const void* v,
 // [.. * rows_per_block * D] and counters int32 [B * n_kv * chunks],
 // zero at launch, chunks = ceil(rep * V / rows_per_block)) for q and
 // out, and the cache unless kv_int8, when k_scale/v_scale must be
-// given. The segment occupies columns [seg, seg + V); `end` (<= S) is
-// one past the last column read. head_dim must be a multiple of 16 up
-// to 128. Returns cudaGetLastError() after the launch.
+// given. The segment occupies columns [*seg, *seg + V), seg an int32
+// in device memory that the caller keeps within [0, n_cols - V];
+// n_cols (<= S) bounds the columns read, and sets the launch geometry.
+// head_dim must be a multiple of 16 up to 128. Returns
+// cudaGetLastError() after the launch.
 extern "C" int verify_attention(const void* q, const void* k, const void* v,
                                 const void* k_scale, const void* v_scale,
-                                const void* valid, void* out, void* part_ml,
-                                void* part_acc, void* counters, int B, int V,
-                                int S, int H, int n_kv, int D, int seg,
-                                int end, int n_split, int rows_per_block,
-                                float scale, int dtype, int kv_int8,
-                                void* stream) {
+                                const void* valid, const void* seg,
+                                void* out, void* part_ml, void* part_acc,
+                                void* counters, int B, int V, int S, int H,
+                                int n_kv, int D, int n_cols, int n_split,
+                                int rows_per_block, float scale, int dtype,
+                                int kv_int8, void* stream) {
   if (D < 16 || D > kMaxD || D % 16 != 0 || n_kv < 1 || H % n_kv != 0 ||
-      V < 1 || seg < 0 || end > S || seg + V > end ||
+      V < 1 || seg == nullptr || n_cols < V || n_cols > S ||
       (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) ||
       (dtype == 1 &&
        (n_split < 1 || part_ml == nullptr || part_acc == nullptr ||
@@ -480,18 +497,18 @@ extern "C" int verify_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && !kv_int8)
-    return launch_f32<float>(q, k, v, k_scale, v_scale, valid, out, B, V, S,
-                             H, n_kv, D, seg, end, scale, st);
+    return launch_f32<float>(q, k, v, k_scale, v_scale, valid, seg, out, B,
+                             V, S, H, n_kv, D, n_cols, scale, st);
   if (dtype == 0 && kv_int8)
-    return launch_f32<int8_t>(q, k, v, k_scale, v_scale, valid, out, B, V,
-                              S, H, n_kv, D, seg, end, scale, st);
+    return launch_f32<int8_t>(q, k, v, k_scale, v_scale, valid, seg, out, B,
+                              V, S, H, n_kv, D, n_cols, scale, st);
   if (dtype == 1 && !kv_int8)
-    return launch_tc<false>(q, k, v, k_scale, v_scale, valid, out, part_ml,
-                            part_acc, counters, B, V, S, H, n_kv, D, seg,
-                            end, n_split, rows_per_block, scale, st);
+    return launch_tc<false>(q, k, v, k_scale, v_scale, valid, seg, out,
+                            part_ml, part_acc, counters, B, V, S, H, n_kv, D,
+                            n_cols, n_split, rows_per_block, scale, st);
   if (dtype == 1 && kv_int8)
-    return launch_tc<true>(q, k, v, k_scale, v_scale, valid, out, part_ml,
-                           part_acc, counters, B, V, S, H, n_kv, D, seg, end,
-                           n_split, rows_per_block, scale, st);
+    return launch_tc<true>(q, k, v, k_scale, v_scale, valid, seg, out,
+                           part_ml, part_acc, counters, B, V, S, H, n_kv, D,
+                           n_cols, n_split, rows_per_block, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

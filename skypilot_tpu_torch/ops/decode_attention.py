@@ -179,8 +179,8 @@ def _paged_decode_cuda(q, kc, vc, valid, row_bound, k_self, v_self,
         n_tiles = -(-min(num_pages * page, s) // split_kv.TILE)
         n_split = split_kv.split_count(b * n_kv, n_tiles,
                                        split_kv.sm_count(q.device))
-        ml, acc, counters = split_kv.workspace(q.device, stream, b * n_kv,
-                                               n_split, rep, hd)
+        ml, acc, counters = split_kv.workspace(q.device, b * n_kv, n_split,
+                                               rep, hd)
     status = fn(_ptr(q), _ptr(kc), _ptr(vc), _ptr(valid), _ptr(row_bound),
                 _ptr(k_scale), _ptr(v_scale), _ptr(k_self), _ptr(v_self),
                 _ptr(out), _ptr(ml), _ptr(acc), _ptr(counters), b, s, n_kv,

@@ -419,8 +419,10 @@ def verify_attention_reference(q, k, v, valid, seg_start, k_scale=None,
                                v_scale=None):
     """Plain version of the verify kernel: query i of the V-token
     segment attends every dmask-true column plus the segment columns
-    seg_start .. seg_start + i (self-inclusive). int8 caches take
-    their per-vector scales as ``chunk_attention_reference`` does."""
+    seg_start .. seg_start + i (self-inclusive); ``seg_start`` is an
+    int32 tensor of one element on q's device (or an integer). int8
+    caches take their per-vector scales as ``chunk_attention_reference``
+    does."""
     vq, s = q.shape[1], k.shape[1]
     col = torch.arange(s, device=q.device)[None, None, :]
     qi = torch.arange(vq, device=q.device)[None, :, None]
@@ -439,27 +441,31 @@ def _verify_attention_cuda(q, k, v, valid, seg, k_scale, v_scale, n_cols):
         raise ValueError(f'unsupported shapes q {tuple(q.shape)} valid '
                          f'{tuple(valid.shape)} (head_dim a multiple of 16, '
                          'bool valid [B, S])')
+    if seg.numel() != 1 or seg.dtype != torch.int32 or \
+            seg.device != q.device:
+        raise ValueError('seg_start must be one int32 on q\'s device')
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.function(VERIFY_KERNEL, 'verify_attention',
-                         [P] * 10 + [I] * 10 + [ctypes.c_float, I, I, P])
+                         [P] * 11 + [I] * 9 + [ctypes.c_float, I, I, P])
     out = torch.empty_like(q)
     stream = _stream(q)
-    # Columns past the segment hold nothing any query sees.
-    end = min(n_cols, seg + vq)
+    # The segment start lives on the device, so the geometry comes from
+    # the static n_cols; the kernel stops at min(n_cols, seg + V).
     rows = h // n_kv * vq
     rb = split_kv.rows_per_block(rows)
     n_split, ml, acc, counters = 1, None, None, None
     if bf16:
         slots = b * n_kv * -(-rows // rb)
-        n_split = split_kv.split_count(slots, -(-end // split_kv.TILE),
+        n_split = split_kv.split_count(slots, -(-n_cols // split_kv.TILE),
                                        split_kv.sm_count(q.device))
-        ml, acc, counters = split_kv.workspace(q.device, stream, slots,
-                                               n_split, rb, d)
+        ml, acc, counters = split_kv.workspace(q.device, slots, n_split, rb,
+                                               d)
     ptr = (lambda t: None if t is None else t.data_ptr())
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
-                ptr(v_scale), valid.data_ptr(), out.data_ptr(), ptr(ml),
-                ptr(acc), ptr(counters), b, vq, s, h, n_kv, d, seg, end,
-                n_split, rb, d**-0.5, int(bf16), int(quant), stream)
+                ptr(v_scale), valid.data_ptr(), seg.data_ptr(),
+                out.data_ptr(), ptr(ml), ptr(acc), ptr(counters), b, vq, s,
+                h, n_kv, d, n_cols, n_split, rb, d**-0.5, int(bf16),
+                int(quant), stream)
     _build.check(status, VERIFY_KERNEL)
     _count(VERIFY_KERNEL, q.dtype)
     if quant:
@@ -475,9 +481,12 @@ def verify_attention(q, k, v, valid, seg_start, k_scale=None, v_scale=None,
     candidates); k/v [B, S, H_kv, D] — each row's cache with the
     segment's K/V already written at columns [seg_start, seg_start + V)
     (bf16/f32, or int8 with k_scale/v_scale [B, S, H_kv]); valid [B, S]
-    bool — the cache dmask, False at and past seg_start; seg_start — a
-    host integer, the shared write frontier. Only the first ``n_cols``
-    columns (default S) are read: they must hold the whole segment.
+    bool — the cache dmask, False at and past seg_start; seg_start — the
+    shared write frontier, one int32 on q's device (a 0-dim or [1]
+    tensor, read by the kernel, never on the host, so a captured launch
+    follows it), or a Python int, copied to the device here and checked.
+    Only the first ``n_cols`` columns (default S) are read: they must
+    hold the whole segment (for a tensor start, the caller's check).
     Returns [B, V, H, D]. CUDA tensors run the hand-written kernel
     (int8 caches included, any H / H_kv x V query rows): a bf16 q the
     split-KV tensor-core one (head_dim in ``FLASH_HEAD_DIMS``, else
@@ -486,10 +495,12 @@ def verify_attention(q, k, v, valid, seg_start, k_scale=None, v_scale=None,
     first n_cols columns."""
     s = k.shape[1]
     n_cols = s if n_cols is None else min(int(n_cols), s)
-    seg = int(seg_start)
-    if seg < 0 or seg + q.shape[1] > n_cols:
-        raise ValueError(f'the segment [{seg}, {seg + q.shape[1]}) does not '
-                         f'lie in the {n_cols} columns read')
+    seg = seg_start
+    if not isinstance(seg, torch.Tensor):
+        if seg < 0 or seg + q.shape[1] > n_cols:
+            raise ValueError(f'the segment [{seg}, {seg + q.shape[1]}) does '
+                             f'not lie in the {n_cols} columns read')
+        seg = torch.tensor(seg, dtype=torch.int32, device=q.device)
     if q.is_cuda:
         return _verify_attention_cuda(q, k, v, valid, seg, k_scale, v_scale,
                                       n_cols)

@@ -8,8 +8,12 @@ of the columns the call reads. Every block writes an unnormalised f32
 partial (m, l, acc) into scratch the wrapper allocates with
 ``torch.empty``; the last block of a (row, kv head) to arrive, counted
 in an int32 counter, merges the partials in split order and resets its
-counter to 0. The counters are allocated zeroed once per device and
-stream and kept (``workspace``), so no call clears anything.
+counter to 0. The counters are allocated zeroed once per device, outside
+any CUDA graph capture (``reserve``, or the first ``workspace`` call),
+and kept, so no call clears anything and a captured launch never owns
+them: the kernels' own reset makes one buffer safe for every launch on
+a device, as long as those launches are ordered (one stream at a
+time, as the engine's ticks and their replays are).
 """
 from __future__ import annotations
 
@@ -21,7 +25,9 @@ TILE = 64                 # cache columns per tile (split_kv::kBk)
 MAX_ROWS_PER_BLOCK = 128  # query rows of a K3 block (split_kv::kMaxRows)
 MAX_SPLIT = 64            # splits the merge holds (split_kv::kMaxSplit)
 
-_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+MIN_COUNTERS = 1024       # counters allocated at least (slots per launch)
+
+_counters: Dict[torch.device, torch.Tensor] = {}
 _sm_counts: Dict[torch.device, int] = {}
 
 
@@ -57,23 +63,34 @@ def sm_count(device: torch.device) -> int:
     return n
 
 
-def workspace(device: torch.device, stream: int, slots: int, n_split: int,
-              rows: int, head_dim: int
+def reserve(device: torch.device, slots: int = MIN_COUNTERS) -> torch.Tensor:
+    """The int32 arrival counters of ``device``, at least ``slots`` long,
+    allocated zeroed now if they are missing or short. Call it before a
+    CUDA graph capture: inside one it raises rather than let the graph's
+    private pool own them (and capture their memset)."""
+    counters = _counters.get(device)
+    if counters is None or counters.numel() < slots:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f'split-KV counters for {slots} slots on {device} must be '
+                'reserved before a CUDA graph capture (split_kv.reserve)')
+        counters = torch.zeros(max(slots, MIN_COUNTERS), dtype=torch.int32,
+                               device=device)
+        _counters[device] = counters
+    return counters
+
+
+def workspace(device: torch.device, slots: int, n_split: int, rows: int,
+              head_dim: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(ml, acc, counters) for one launch: f32 partials [slots, n_split,
     rows, 2] and [slots, n_split, rows, head_dim], uninitialised (views
-    of one allocation), and the int32 arrival counters of ``stream`` on
-    ``device``, at least ``slots`` long, zero between launches (the
-    kernels leave them so)."""
+    of one allocation, from the graph's pool under capture), and the
+    int32 arrival counters of ``device`` (``reserve``), at least
+    ``slots`` long, zero between launches (the kernels leave them so)."""
     n = slots * n_split * rows
     scratch = torch.empty(n * (2 + head_dim), dtype=torch.float32,
                           device=device)
     # acc first: the merge reads it as 16-byte float4s.
     acc, ml = scratch[:n * head_dim], scratch[n * head_dim:]
-    key = (device, stream)
-    counters = _counters.get(key)
-    if counters is None or counters.numel() < slots:
-        counters = torch.zeros(max(slots, 1024), dtype=torch.int32,
-                               device=device)
-        _counters[key] = counters
-    return ml, acc, counters
+    return ml, acc, reserve(device, slots)

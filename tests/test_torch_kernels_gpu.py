@@ -347,12 +347,13 @@ def test_wide_verify_segment_engine_on_the_card(cuda):
 
     def run(**extra):
         eng = se.ServingEngine(params, cfg, **kw, **extra)
+        eng.warmup()                   # captures the tick programs
+        _build.reset_launches()        # count the served requests only
         res = eng.run([se.Request(r, p, max_new=14)
                        for r, p in prompts.items()])
         return eng, {r: res[r].tokens for r in prompts}
 
     _, want = run()
-    _build.reset_launches()
     eng, got = run(spec_decode=True, spec_k=8)
     torch.cuda.synchronize()
     assert got == want
