@@ -16,7 +16,8 @@ Phases (any failure exits 1 and prints no result line):
    function's tensor-core instructions in its SASS (``cuobjdump -sass``
    split at its ``Function :`` headers; HGMMA is wgmma, HMMA mma.sync),
    one line per function; every instantiation of the bf16 kernels of
-   K1, K2, K3, K4, K5a and K5b must hold HGMMA, Q1's bf16 kernel HMMA.
+   K1, K2, K3, K4, K5a and K5b and of Q1's wgmma route must hold HGMMA,
+   Q1's mma.sync route (shapes a tensor map cannot take) HMMA.
 2. K1, paged GQA decode, against its plain PyTorch version at
    Llama-3.1-8B decode shapes (B 8, S 1024, 8 kv heads, 4 query heads
    each, head_dim 128, page 128): ragged row bounds, dmask holes, an
@@ -170,15 +171,20 @@ Phases (any failure exits 1 and prints no result line):
    K4 launched once per layer (the prefill, on the f32 route), K1 per
    decode step.
 11. int8 weights (``--only 11`` runs it alone after phase 1): 11a Q1,
-   the int8-weight product, against its plain version at the 8B
-   shapes on both routes, with device times beside the library call
-   and a dense bf16 matmul (``phase_q1``); 11b ``qdot_a8``'s
-   ``torch._int_mm`` product exact (``phase_int_mm``); 11c depth-2 f32
-   parity on int8 weights: engine, int8 KV, speculation, the prefix
-   cache, ``prefill_a8`` and ``attn_impl`` (``phase_int8_parity``); 11d
-   the main path on born-int8 8B weights, beside phase 5's bf16 run
-   (``phase_int8_main_path``); 11e ``bench.py``'s decode_w8 shape and
-   11f its serve_a8 shape (``phase_decode_w8``, ``phase_serve_a8``).
+   the int8-weight product, against its plain version at every shape
+   the 8B and tpu_1b paths below give it, on every route, with device
+   times of a decoder layer's seven products at every M the main path
+   gives Q1 (the 8B layer at M 8, 40, 128 and 256, tpu_1b's at 128)
+   beside their bound, the library call and a dense bf16 matmul, and
+   each leaf's plan (``phase_q1``); 11b ``qdot_a8``'s ``torch._int_mm`` product exact
+   (``phase_int_mm``); 11c depth-2 f32 parity on int8 weights: engine,
+   int8 KV, speculation, the prefix cache, ``prefill_a8`` and
+   ``attn_impl`` (``phase_int8_parity``); 11d the main path on born-int8
+   8B weights, beside phase 5's bf16 run (``phase_int8_main_path``);
+   11e ``bench.py``'s decode_w8 shape, with the captured step's device
+   time by kernel group (Q1, cuBLAS, K1, the other PyTorch kernels) and
+   idle share from profiled replays, and 11f its serve_a8 shape
+   (``phase_decode_w8``, ``phase_serve_a8``).
 12. The replica's HTTP front end (run after 5d, on phase 5's weights;
    ``phase_http``): a fresh engine of phase 5's geometry behind the
    port's ``EngineServer`` on localhost serves phase 5's 12 requests,
@@ -190,6 +196,10 @@ Phases (any failure exits 1 and prints no result line):
    clean. A prefill and a decode replica (prefix cache on, phase 5's
    weight tensors) hand four prompts over ``kv_prefill`` and
    /kv/fetch: the decode replica's tokens equal phase 5's bitwise.
+
+``--tree DIR`` imports the port from another checkout (the parent
+commit unpacked with ``git archive``), so one call can time two trees
+with the same phases, in turns; such a run prints no result lines.
 
 The graphed main path (untraced and traced) is always repeated under
 torch.profiler for its idle share; ``--profile-dir DIR`` adds that pass
@@ -2125,19 +2135,27 @@ def phase_http(torch, dev, seed, card, handover):
     torch.cuda.empty_cache()
 
 
-KERNEL_GROUPS = (('paged_decode', 'K1 paged_decode'),
-                 ('chunk_prefill', 'K2 chunk_prefill'),
-                 ('verify_attention', 'K3 verify_attention'),
-                 ('flash_fwd', 'K4 flash_fwd'), ('flash_dq', 'K5a flash_dq'),
-                 ('flash_dkv', 'K5b flash_dkv'),
-                 ('int8_matmul_reduce', 'Q1 int8_matmul (split-K sums)'),
-                 ('int8_matmul', 'Q1 int8_matmul'))
+# (part of the kernel's name, group, its wrappers' launch count key).
+# Each of Q1's routes is a group of its own.
+KERNEL_GROUPS = (('paged_decode', 'K1 paged_decode', 'paged_decode'),
+                 ('chunk_prefill', 'K2 chunk_prefill', 'chunk_prefill'),
+                 ('verify_attention', 'K3 verify_attention',
+                  'verify_attention'),
+                 ('flash_fwd', 'K4 flash_fwd', 'flash_fwd'),
+                 ('flash_dq', 'K5a flash_dq', 'flash_dq'),
+                 ('flash_dkv', 'K5b flash_dkv', 'flash_dkv'),
+                 ('int8_matmul_wgmma', 'Q1 int8_matmul (wgmma)',
+                  'int8_matmul.wgmma'),
+                 ('int8_matmul_mma', 'Q1 int8_matmul (mma.sync)',
+                  'int8_matmul.mma'),
+                 ('int8_matmul_f32', 'Q1 int8_matmul (f32)',
+                  'int8_matmul.f32'))
 # The last profile_run's device time by kernel group: {group: (ms, n)}.
 LAST_PROFILE = {}
 
 
 def kernel_group(name):
-    for key, group in KERNEL_GROUPS:
+    for key, group, _ in KERNEL_GROUPS:
         if key in name:
             return group
     if 'nvjet' in name or 'gemm' in name or 'cublas' in name.lower():
@@ -2196,12 +2214,13 @@ def profile_run(torch, fn, out_dir, tag):
         f'{busy:.3f} s ({sum(n for _, n in groups.values())} kernel '
         'launches); device time by group:')
     for group, (ms, n) in sorted(groups.items(), key=lambda t: -t[1][0]):
-        log(f'  {group:24s} {ms:10.1f} ms {n:8d} launches '
+        log(f'  {group:30s} {ms:10.1f} ms {n:8d} launches '
             f'{100 * ms / 1e3 / busy:5.1f}%')
     counted = ', '.join(
-        f'{group.split()[0]} {groups.get(group, (0.0, 0))[1]}/'
-        f'{host.get(key, 0)}' for key, group in KERNEL_GROUPS
-        if host.get(key, 0) or group in groups)
+        f'{group} {groups.get(group, (0.0, 0))[1]}/'
+        f'{host.get(count, 0) if count else "-"}'
+        for _, group, count in KERNEL_GROUPS
+        if host.get(count, 0) or group in groups)
     log(f'profile ({tag}): kernel launches seen by the profiler / counted '
         f'by the wrappers: {counted}')
     log('profile: top kernels by device time:')
@@ -2603,17 +2622,20 @@ def phase_train(torch, dev, seed, card, profile_dir=None):
 
 
 # Kernel functions whose SASS must hold HGMMA (wgmma): every
-# instantiation of the bf16 routes of K1, K2, K3, K4, K5a and K5b.
+# instantiation of the bf16 routes of K1, K2, K3, K4, K5a and K5b, and
+# Q1's wgmma route.
 TENSOR_CORE_KERNELS = {
     'paged_decode': ('paged_decode_tc_kernel',),
     'verify_attention': ('verify_attention_tc_kernel',),
     'flash_fwd': ('flash_fwd_tc_kernel',),
     'flash_bwd': ('flash_dq_tc_kernel', 'flash_dkv_tc_kernel'),
     'chunk_prefill': ('chunk_prefill_tc_kernel',),
+    'int8_matmul': ('int8_matmul_wgmma_kernel',),
 }
-# Kernel functions whose SASS must hold HMMA (mma.sync): Q1's bf16 route
-# (HGMMA is later work for it).
-MMA_SYNC_KERNELS = {'int8_matmul': ('int8_matmul_tc_kernel',)}
+# Kernel functions whose SASS must hold HMMA (mma.sync): Q1's mma.sync
+# route, for the shapes a tensor map cannot take (N % 16 != 0, a
+# misaligned q).
+MMA_SYNC_KERNELS = {'int8_matmul': ('int8_matmul_mma_kernel',)}
 
 
 def sass_functions(tool, path):
@@ -2797,11 +2819,16 @@ def phase_generate(torch, dev, parity):
 # ------------------------------------------------------------- int8 (Q1)
 
 # Q1's shapes on the main path (Llama-3.1-8B): (leaf, K, N), and the rows
-# M of a decode step (batch 8), a verify tick (8 x V 5) and a prefill
-# chunk (2 rows x 128).
+# M of a decode step (batch 8), a verify tick (8 x V 5), a batch-128
+# step and a prefill chunk (2 rows x 128).
 Q1_LEAVES = (('wq/wo', 4096, 4096), ('wk/wv', 4096, 1024),
              ('w_gate/w_up', 4096, 14336), ('w_down', 14336, 4096))
-Q1_ROWS = (8, 40, 256)
+Q1_ROWS = (8, 40, 128, 256)
+# tpu_1b's leaves and the rows the decode_w8 (batch 128) and serve_a8
+# (decode batch 64, prefill chunk 256) shapes give them.
+Q1_LEAVES_1B = (('wq/wo', 2048, 2048), ('wk/wv', 2048, 1024),
+                ('w_gate/w_up', 2048, 8192), ('w_down', 8192, 2048))
+Q1_ROWS_1B = (64, 128, 256)
 # The lm_head (f32 output), one row, and a ragged N: (tag, M, K, N,
 # f32 output).
 Q1_EXTRA = (('lm_head M 8 (f32 out)', 8, 4096, 128256, True),
@@ -2813,6 +2840,15 @@ Q1_LAYER = (('wq', 4096, 4096), ('wk', 4096, 1024), ('wv', 4096, 1024),
             ('wo', 4096, 4096), ('w_gate', 4096, 14336),
             ('w_up', 4096, 14336), ('w_down', 14336, 4096))
 Q1_HEAD = ('lm_head', 4096, 128256)
+# tpu_1b's decode layer, the decode_w8 shape's products (batch 128).
+Q1_LAYER_1B = (('wq', 2048, 2048), ('wk', 2048, 1024), ('wv', 2048, 1024),
+               ('wo', 2048, 2048), ('w_gate', 2048, 8192),
+               ('w_up', 2048, 8192), ('w_down', 8192, 2048))
+# The timed layers: (model, layer, M) for every M the main path gives Q1
+# -- an 8B decode step (batch 8), a verify tick (8 x V 5), a batch-128
+# step, a prefill chunk -- and tpu_1b's decode_w8 step.
+Q1_TIMED = (('8B', Q1_LAYER, 8), ('8B', Q1_LAYER, 40), ('8B', Q1_LAYER, 128),
+            ('8B', Q1_LAYER, 256), ('tpu_1b', Q1_LAYER_1B, 128))
 # qdot_a8's int32 products: (M, K, N); M 8 is padded to 17 rows.
 INT_MM_SHAPES = ((8, 4096, 4096), (256, 4096, 14336), (256, 14336, 4096),
                  (300, 4096, 1000))
@@ -2831,6 +2867,14 @@ def q1_inputs(torch, dev, m, k, n, dtype, seed):
     return x, q, s
 
 
+def q1_plan(im, x, q, route=None):
+    """The wrapper's plan for these bf16 operands."""
+    from skypilot_tpu_torch.ops import split_kv
+    m, k = x.shape
+    return im.plan(m, k, q.shape[1], split_kv.sm_count(x.device),
+                   im.takes_tensor_map(q), route)
+
+
 def q1_check(torch, x, q, s, tag, out_f32=False):
     """Q1 against its plain version; see ``phase_q1``. Returns the max
     abs error of the call's own output against the plain version's."""
@@ -2843,8 +2887,9 @@ def q1_check(torch, x, q, s, tag, out_f32=False):
     want = im.int8_matmul_reference(x, q, s, f32 if out_f32 else None)
     torch.cuda.synchronize()
     finite = bool(torch.isfinite(got.float()).all())
-    route = ({'int8_matmul': 1, 'int8_matmul.f32': 1}
-             if x.dtype == f32 else {'int8_matmul': 1})
+    bf16_route = q1_plan(im, x, q).route
+    route = {'int8_matmul': 1,
+             f'int8_matmul.{"f32" if x.dtype == f32 else bf16_route}': 1}
     check(launches == route, f'Q1 {tag}: launches {launches}, want {route}')
     err, ok = compare(got, want, bf16_bar=x.dtype != f32)
     if x.dtype == f32 or out_f32:
@@ -2863,11 +2908,12 @@ def q1_check(torch, x, q, s, tag, out_f32=False):
     beyond = int(((got.float() - want.float()).abs() >
                   1e-2 + 2**-7 * want.float().abs()).sum())
     differ = int((got != want).sum())
-    log(f'Q1 {tag}: product (f32 output) max_abs_err {f32_err:.3g} (within '
-        f'bar: {f32_ok}); bf16 output = the rounding of its own f32 sum: '
-        f'{exact}; against the plain bf16 output max_abs_err {err:.3g}, '
-        f'{differ} of {got.numel()} differ, {beyond} by more than one step '
-        f'(two roundings of sums in two orders); finite {finite}')
+    log(f'Q1 {tag} ({bf16_route} route): product (f32 output) '
+        f'max_abs_err {f32_err:.3g} (within bar: {f32_ok}); bf16 output = '
+        f'the rounding of its own f32 sum: {exact}; against the plain bf16 '
+        f'output max_abs_err {err:.3g}, {differ} of {got.numel()} differ, '
+        f'{beyond} by more than one step (two roundings of sums in two '
+        f'orders); finite {finite}')
     check(f32_ok and exact and finite,
           f'Q1 {tag} disagrees with its plain version')
     return err
@@ -2901,10 +2947,15 @@ def graph_ms(torch, fn, arg_sets, reps=20):
     return start.elapsed_time(end) / (5 * reps)
 
 
-def q1_times(torch, dev, m, k, n, seed, out_f32=False):
-    """(kernel, plain, library, dense bf16 matmul) device ms and the
-    bound (bytes over 3.35 TB/s or 2 M K N operations over the bf16
-    peak: the products run in bf16) of one Q1 call at (m, k, n)."""
+def q1_times(torch, dev, m, k, n, seed, out_f32=False, route=None,
+             plain=False):
+    """Device ms of one Q1 call at (m, k, n) on the bf16 route ``route``
+    forces (None: the planned one), of the library call computing the
+    same function and of a dense bf16 matmul of that shape, and, with
+    ``plain``, of Q1's plain version; the bound (bytes over 3.35 TB/s or
+    2 m k n operations over the bf16 peak: the products run in bf16)
+    and what sets it; the plan (tile, splits). Each time is a CUDA graph
+    of calls over copies of the inputs that overflow the L2 cache."""
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import int8_matmul as im
     out_dtype = torch.float32 if out_f32 else None
@@ -2913,57 +2964,88 @@ def q1_times(torch, dev, m, k, n, seed, out_f32=False):
               m * n * (4 if out_f32 else 2))
     sets = copies_of((x, q, s), nbytes)
     before = dict(_build.LAUNCHES)
-    ms = graph_ms(torch, lambda a, b, c: im.int8_matmul(a, b, c, out_dtype),
-                  sets)
-    plain_ms = graph_ms(torch, lambda a, b, c: im.int8_matmul_reference(
-        a, b, c, out_dtype), sets[:2], reps=4)
+    if route is None:
+        call = lambda a, b, c: im.int8_matmul(a, b, c, out_dtype)  # noqa
+    else:
+        call = lambda a, b, c: im._int8_matmul_cuda(  # noqa
+            a, b, c, out_dtype, route)
+    out = {'ms': graph_ms(torch, call, sets)}
+    if plain:
+        out['plain_ms'] = graph_ms(torch, lambda a, b, c: (
+            im.int8_matmul_reference(a, b, c, out_dtype)), sets[:2], reps=4)
     # The library call computing the same function: cast the weight,
     # multiply, scale (it writes the bf16 copy Q1 never writes).
-    library_ms = graph_ms(torch, lambda a, b, c: (
+    out['library_ms'] = graph_ms(torch, lambda a, b, c: (
         torch.matmul(a, b.to(torch.bfloat16)) * c).to(out_dtype or a.dtype),
         sets[:2], reps=4)
     dense = [(x, torch.randn((k, n), device=dev).to(torch.bfloat16))
              for _ in range(min(len(sets), 4))]
-    dense_ms = graph_ms(torch, torch.matmul, dense)
+    out['dense_ms'] = graph_ms(torch, torch.matmul, dense)
     _build.LAUNCHES.clear()               # timing launches count nowhere
     _build.LAUNCHES.update(before)
-    bound_ms, bound_by = bound(nbytes, 2 * m * k * n, 'bfloat16')
+    out['bound_ms'], out['bound_by'] = bound(nbytes, 2 * m * k * n,
+                                             'bfloat16')
+    p = q1_plan(im, x, q, route)
+    out['plan'] = f'{p.route} tile {p.m_tile} split {p.splits}'
     del sets, dense
-    return ms, plain_ms, library_ms, dense_ms, bound_ms, bound_by
+    return out
+
+
+def q1_layer(torch, dev, layer, m, seed, route=None):
+    """One decoder layer's seven products at M ``m`` (``q1_times`` of
+    each distinct shape, summed over the layer): Q1, library, dense and
+    bound ms, what sets the bound (or 'both'), and each leaf's plan."""
+    shapes = {}
+    for _, k, n in layer:
+        if (k, n) not in shapes:
+            shapes[(k, n)] = q1_times(torch, dev, m, k, n, seed, route=route)
+    out = {key: sum(shapes[(k, n)][key] for _, k, n in layer)
+           for key in ('ms', 'library_ms', 'dense_ms', 'bound_ms')}
+    by = {shapes[(k, n)]['bound_by'] for _, k, n in layer}
+    out['bound_by'] = by.pop() if len(by) == 1 else 'both'
+    out['plans'] = {leaf: shapes[(k, n)]['plan'] for leaf, k, n in layer}
+    return out
 
 
 def phase_q1(torch, dev, seed, report):
-    """11a. Q1 against its plain version at the main path's shapes: M 8,
-    40 and 256 rows for each leaf shape (wq/wo, wk/wv, w_gate/w_up,
-    w_down), the lm_head (M 8, N 128256) with its f32 output, M 1, and a
-    ragged N (M 300, N 1000), on both routes. f32 x (CUDA cores):
-    |kernel - plain| <= 1e-4. bf16 x (tensor cores): the product read as
-    f32 within 1e-2 + 2^-7 |plain|, and the bf16 output bit for bit the
+    """11a. Q1 against its plain version at every shape the paths this
+    script drives give it: the 8B leaves (wq/wo, wk/wv, w_gate/w_up,
+    w_down) at M 8, 40, 128 and 256, tpu_1b's at M 64, 128 and 256
+    (serve_a8's decode and prefill, decode_w8), the lm_head (M 8, N
+    128256) with its f32 output, M 1, and a ragged N (M 300, N 1000: the
+    mma.sync route), on every route. f32 x (CUDA cores): |kernel -
+    plain| <= 1e-4. bf16 x (tensor cores): the product read as f32
+    within 1e-2 + 2^-7 |plain|, and the bf16 output bit for bit the
     reference's rounding of the kernel's own f32 sum (the sum rounded to
     bf16, times the scale rounded to bf16, rounded again); the bf16
     output's distance to the plain version's is printed, not held to the
     one-step bar: two sums in different orders round to neighbouring
     bf16 values now and then, and the second rounding can widen that to
-    two steps. Each call must count its route. Then device times (a
-    CUDA graph of 20 calls): Q1, its plain version, the library call
-    ``torch.matmul(x, q.to(bf16)) * s`` and a dense bf16 ``torch.matmul``
-    of the same shape, beside the bound, for one decode layer's seven
-    products and the lm_head; and the dense lm_head the way the bf16
-    main path runs it (``qdot`` with an f32 result: cuBLAS sums the bf16
-    operands into f32, P5) beside the bf16-out ``torch.matmul``, at M 8
-    and 256."""
+    two steps. Each call must count its planned route. Then device times
+    (a CUDA graph of 20 calls) of one decoder layer's seven products at
+    every M the main path gives Q1 (``Q1_TIMED``: the 8B layer at M 8,
+    40, 128 and 256, tpu_1b's at 128): Q1, the library call
+    ``torch.matmul(x, q.to(bf16)) * s``, a dense bf16 ``torch.matmul`` of
+    the same shapes, the bound and its share reached, and each leaf's
+    plan; the lm_head; and the dense lm_head the way the bf16 main path
+    runs it (``qdot`` with an f32 result: cuBLAS sums the bf16 operands
+    into f32, P5) beside the bf16-out ``torch.matmul``, at M 8 and
+    256."""
     from skypilot_tpu_torch.models import quantization
-    from skypilot_tpu_torch.ops import int8_matmul as im
-    from skypilot_tpu_torch.ops import split_kv
     entry = {'name': 'int8_matmul', 'route': 'cuda',
              'source': 'skypilot_tpu_torch/ops/csrc/int8_matmul.cu',
              'replaces': 'skypilot_tpu/models/quantization.py:146 (qdot: '
                          'XLA fuses the int8 convert into the dot; no '
                          'Pallas kernel)',
-             'products': 'bf16 mma.sync m16n8k16 with split-K (f32 route: '
-                         'f32 CUDA cores)'}
-    cases = [(f'{leaf} M {m}', m, k, n, False)
-             for leaf, k, n in Q1_LEAVES for m in Q1_ROWS] + list(Q1_EXTRA)
+             'products': 'bf16 wgmma m64nMTk16 (q^T from registers, '
+                         'converted once; x by TMA), split-K summed in the '
+                         'kernel; mma.sync m16n8k16 where a tensor map '
+                         'cannot take q (f32 route: f32 CUDA cores)'}
+    cases = ([(f'{leaf} M {m}', m, k, n, False)
+              for leaf, k, n in Q1_LEAVES for m in Q1_ROWS] +
+             [(f'tpu_1b {leaf} M {m}', m, k, n, False)
+              for leaf, k, n in Q1_LEAVES_1B for m in Q1_ROWS_1B] +
+             list(Q1_EXTRA))
     errs = {}
     for i, (tag, m, k, n, out_f32) in enumerate(cases):
         for route in ('f32', 'bf16'):
@@ -2974,24 +3056,27 @@ def phase_q1(torch, dev, seed, report):
             errs[(tag, route)] = q1_check(torch, x, q, s, f'{tag} {route}',
                                           out_f32)
             del x, q, s
-    # One decode layer reuses four shapes: wq = wo, wk = wv, w_gate =
-    # w_up.
-    timed = ('wq', 'wk', 'w_gate', 'w_down')
-    per = {'wq': 'wq', 'wk': 'wk', 'wv': 'wk', 'wo': 'wq',
-           'w_gate': 'w_gate', 'w_up': 'w_gate', 'w_down': 'w_down'}
-    shapes = {}
-    for leaf, k, n in [t for t in Q1_LAYER if t[0] in timed] + [Q1_HEAD]:
-        out_f32 = leaf == Q1_HEAD[0]
-        t = q1_times(torch, dev, 8, k, n, seed, out_f32)
-        shapes[leaf] = dict(zip(('ms', 'plain_ms', 'library_ms', 'dense_ms',
-                                 'bound_ms', 'bound_by'), t),
-                            split=im.split_count(8, k, n,
-                                                 split_kv.sm_count(dev)))
-        log(f'Q1 times at M 8, K {k}, N {n} ({leaf}): kernel {t[0]:.4f} ms, '
-            f'plain {t[1]:.4f}, library (matmul(x, q.to(bf16)) * s) '
-            f'{t[2]:.4f}, dense bf16 matmul {t[3]:.4f}, bound {t[4]:.4f} '
-            f'({t[5]}); {k * n / t[0] / 1e6:.0f} GB/s of weight; split '
-            f'{shapes[leaf]["split"]}')
+    layers = {}
+    for model, layer, m in Q1_TIMED:
+        t = q1_layer(torch, dev, layer, m, seed)
+        layers[f'{model} M {m}'] = t
+        plans = ', '.join(f'{leaf} {plan}'
+                          for leaf, plan in t['plans'].items())
+        log(f'Q1, one {model} decode layer\'s seven products at M {m}: '
+            f'kernel {t["ms"]:.4f} ms ({1e3 * t["ms"] / 7:.1f} us a launch), '
+            f'bound {t["bound_ms"]:.4f} ({t["bound_by"]}; '
+            f'{100 * t["bound_ms"] / t["ms"]:.1f}% of it reached), library '
+            f'(matmul(x, q.to(bf16)) * s) {t["library_ms"]:.4f}, dense bf16 '
+            f'matmul {t["dense_ms"]:.4f}; plans: {plans}')
+    main = q1_times(torch, dev, 8, 4096, 14336, seed, plain=True)
+    head = q1_times(torch, dev, 8, *Q1_HEAD[1:], seed, out_f32=True)
+    log(f'Q1 times at M 8, K 4096, N 14336 (w_gate): kernel '
+        f'{main["ms"]:.4f} ms, plain {main["plain_ms"]:.4f}, library '
+        f'{main["library_ms"]:.4f}, dense bf16 {main["dense_ms"]:.4f}, '
+        f'bound {main["bound_ms"]:.4f} ({main["bound_by"]}); '
+        f'{4096 * 14336 / main["ms"] / 1e6:.0f} GB/s of weight; lm_head M 8 '
+        f'(f32 out): kernel {head["ms"]:.4f}, bound {head["bound_ms"]:.4f}, '
+        f'library {head["library_ms"]:.4f}, dense bf16 {head["dense_ms"]:.4f}')
     head_f32 = {}
     for m in (8, 256):
         _, k, n = Q1_HEAD
@@ -3005,14 +3090,7 @@ def phase_q1(torch, dev, seed, report):
             f'operands (qdot, P5) {head_f32[m][0]:.4f} ms, bf16-out '
             f'torch.matmul {head_f32[m][1]:.4f} ms')
         del dense
-    layer = {key: sum(shapes[per[leaf]][key] for leaf, _, _ in Q1_LAYER)
-             for key in ('ms', 'plain_ms', 'library_ms', 'dense_ms',
-                         'bound_ms')}
-    log(f'Q1, one decode layer\'s seven products at M 8: kernel '
-        f'{layer["ms"]:.4f} ms, plain {layer["plain_ms"]:.4f}, library '
-        f'{layer["library_ms"]:.4f}, dense bf16 {layer["dense_ms"]:.4f}, '
-        f'bound {layer["bound_ms"]:.4f}')
-    main = shapes['w_gate']
+    layer = layers['8B M 8']
     entry.update(max_abs_err=errs[('w_gate/w_up M 8', 'bf16')],
                  f32_max_abs_err=errs[('w_gate/w_up M 8', 'f32')],
                  ms=main['ms'], plain_ms=main['plain_ms'],
@@ -3022,9 +3100,12 @@ def phase_q1(torch, dev, seed, report):
                  dense_bf16_ms=main['dense_ms'],
                  layer_ms=layer['ms'], layer_bound_ms=layer['bound_ms'],
                  layer_dense_bf16_ms=layer['dense_ms'],
-                 lm_head_ms=shapes['lm_head']['ms'],
-                 lm_head_bound_ms=shapes['lm_head']['bound_ms'],
-                 lm_head_dense_bf16_ms=shapes['lm_head']['dense_ms'],
+                 layers={tag: {key: t[key] for key in (
+                     'ms', 'bound_ms', 'bound_by', 'library_ms', 'dense_ms',
+                     'plans')} for tag, t in layers.items()},
+                 lm_head_ms=head['ms'], lm_head_bound_ms=head['bound_ms'],
+                 lm_head_library_ms=head['library_ms'],
+                 lm_head_dense_bf16_ms=head['dense_ms'],
                  lm_head_dense_f32_sum_ms=head_f32[8][0])
     report.append(entry)
     torch.cuda.empty_cache()
@@ -3297,7 +3378,12 @@ def phase_int8_main_path(torch, dev, seed, card, bf16_rate, profile_dir):
     q1_ms = sum(ms for g, (ms, _) in groups.items() if g.startswith('Q1'))
     log(f'{tag}: Q1 {q1_ms:.1f} ms of {busy_ms:.1f} ms device time in the '
         f'profiled repeat ({100 * q1_ms / max(busy_ms, 1e-9):.1f}%); idle '
-        f'share {idle:.3f}, host {host_ms:.2f} ms per tick')
+        f'share {idle:.3f}, host {host_ms:.2f} ms per tick; Q1 launches by '
+        f'pass: {steps * (7 * n_l + 1)} in decode steps (M 8), '
+        f'{ticks * (7 * n_l + 1)} in prefill ticks (M 256, lm_head on the '
+        f'chunk\'s last rows); by route: '
+        + ', '.join(f'{k} {v}' for k, v in sorted(launches.items())
+                    if k.startswith('int8_matmul.')))
     del eng
     torch.cuda.empty_cache()
     # One decode step at batch 8, 512 tokens a row, captured and
@@ -3339,13 +3425,17 @@ def random_cache(torch, inference, cfg, dev, batch, context, max_seq,
 
 
 def decode_step_ms(torch, inference, params, cfg, dev, batch, context,
-                   max_seq, steps, kv_quant, seed):
+                   max_seq, steps, kv_quant, seed, profile_tag=None):
     """Device ms of one ``decode_step`` at ``batch`` rows on a cache of
     ``context`` live tokens a row: the step captured once with
     ``_build.capture`` (after one eager step that loads the kernels) and
     replayed ``steps`` times between CUDA events; each replay writes the
     next slot (the write slot comes from the cache's device ``steps``).
-    Checks finite logits and the launches per replay."""
+    Checks finite logits and the launches per replay. With
+    ``profile_tag``, ``steps`` more replays run under torch.profiler
+    (``profile_run``: device time by kernel group) and the profiled
+    replays' device idle share is logged; the cache must hold
+    ``context + 2 * steps`` slots then."""
     from skypilot_tpu_torch.ops import _build
     cache = random_cache(torch, inference, cfg, dev, batch, context,
                          max_seq, kv_quant, seed)
@@ -3373,6 +3463,13 @@ def decode_step_ms(torch, inference, params, cfg, dev, batch, context,
           'advance the write slot')
     check(launches.get('paged_decode', 0) == steps * cfg.n_layers,
           f'decode step: launches {launches}')
+    if profile_tag:
+        busy, wall, _ = profile_run(
+            torch, lambda: [graph.replay() for _ in range(steps)], None,
+            profile_tag)
+        log(f'{profile_tag}: {steps} profiled replays, device busy '
+            f'{busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall: idle share '
+            f'{1 - busy / wall:.3f}')
     del graph, cache
     return start.elapsed_time(end) / steps
 
@@ -3390,7 +3487,7 @@ def phase_decode_w8(torch, dev, seed, card):
     from skypilot_tpu_torch.models import quantization as qz
     from skypilot_tpu_torch.ops import _build
     cfg = llama.LlamaConfig.tpu_1b(max_seq=1280, param_dtype=torch.bfloat16)
-    batch, context, steps = 128, 1024, 64
+    batch, context, steps = 128, 1024, 64     # 1024 + 2 x 64 <= 1280
     live = context + (steps - 1) / 2
     cache_bytes = (2 * cfg.n_layers * batch * live * cfg.n_kv_heads *
                    (cfg.head_dim + 2))
@@ -3404,11 +3501,27 @@ def phase_decode_w8(torch, dev, seed, card):
         w_bytes = qz.quantized_bytes(params) - emb_bytes + \
             emb_bytes * batch // cfg.vocab_size
         _build.reset_launches()
+        tag = f'decode_w8 shape ({kind} weights, int8 KV)'
         ms = decode_step_ms(torch, inference, params, cfg, dev, batch,
-                            context, 1280, steps, kv_quant=True, seed=seed)
+                            context, 1280, steps, kv_quant=True, seed=seed,
+                            profile_tag=tag)
+        groups = LAST_PROFILE.get('groups', {})
+        busy_ms = sum(t for t, _ in groups.values())
+        split = {}
+        for group, (t, n) in groups.items():
+            key = ('Q1' if group.startswith('Q1') else
+                   group if group.startswith(('K1', 'matmul')) else
+                   'other PyTorch kernels')
+            split[key] = (split.get(key, (0.0, 0))[0] + t / steps,
+                          split.get(key, (0.0, 0))[1] + n / steps)
+        log(f'{tag}: device ms a step by group (profiled replays): '
+            + ', '.join(f'{key} {t:.3f} ms ({n:.0f} kernels, '
+                        f'{100 * t * steps / max(busy_ms, 1e-9):.1f}%)'
+                        for key, (t, n) in sorted(split.items(),
+                                                  key=lambda kv: -kv[1][0])))
         bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
         out[kind] = ms
-        log(f'decode_w8 shape ({kind} weights, int8 KV): {ms:.3f} ms a step '
+        log(f'{tag}: {ms:.3f} ms a step '
             f'= {batch / ms * 1e3:.0f} tokens/s on {card}; bound '
             f'{bound_ms:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + '
             f'{cache_bytes / 1e9:.3f} GB of cache)')
@@ -3492,8 +3605,14 @@ def main(argv=None):
                     'model needs that phase too; 11 runs 11a-11f, which '
                     'make their own models); such a partial run prints no '
                     'result lines')
+    ap.add_argument('--tree', default=None,
+                    help='import the port from this checkout instead of '
+                    'the one beside the script (a same-call comparison with '
+                    'another commit, e.g. one unpacked with git archive); '
+                    'such a run prints no result lines')
     args = ap.parse_args(argv)
     only = None if args.only is None else set(args.only.split(','))
+    root = os.path.abspath(args.tree) if args.tree else HERE
     try:
         import torch
     except ImportError as e:
@@ -3503,11 +3622,11 @@ def main(argv=None):
         print('chip_smoke: torch.cuda.is_available() is False; this smoke '
               'test runs on an NVIDIA GPU only', file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(HERE, 'skypilot_tpu_torch')):
+    if not os.path.isdir(os.path.join(root, 'skypilot_tpu_torch')):
         print('chip_smoke: run it from a checkout of the repository (no '
-              'skypilot_tpu_torch package beside it)', file=sys.stderr)
+              f'skypilot_tpu_torch package in {root})', file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     # Full-f32 products everywhere: the parity phases compare f32 paths.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3542,7 +3661,8 @@ def main(argv=None):
         log(f'kernels built in {time.perf_counter() - t0:.2f} s')
         for name, text in logs.items():
             for line in text.splitlines():
-                if 'registers' in line or 'spill' in line:
+                if 'registers' in line or 'spill' in line or \
+                        'arning' in line:
                     log(f'  {name}: {line.strip()}')
 
     phase('1 build', build)
@@ -3596,9 +3716,9 @@ def main(argv=None):
         print('chip_smoke FAILED:\n  ' + '\n  '.join(failures),
               file=sys.stderr)
         return 1
-    if only is not None:
-        log(f'chip_smoke: phases {sorted(only)} passed (a partial run: no '
-            'result)')
+    if only is not None or args.tree:
+        log(f'chip_smoke: phases {sorted(only or ["all"])} passed (a partial '
+            f'run or another tree: no result)')
         return 0
     log(card)
     log(json.dumps({'kernels': report}))
