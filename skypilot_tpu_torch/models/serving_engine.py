@@ -75,6 +75,9 @@ device sync. The ``skytpu_engine_*`` series (``metrics/``), the
 ``engine.*`` spans (``trace/``, under ``SKYTPU_TRACE_DIR``) and the
 ``engine.tick.hang``/``engine.tenant.burst`` fault sites carry the
 reference's names, labels and buckets. Warmup counts in none of them.
+The port's own tick spans (``engine.tick`` and its phases, and
+``engine.tick.device`` with the tick's work and device time) exist
+only under ``SKYTPU_TRACE_DIR``; docs/tracing.md lists them.
 
 int8 weights (``weight_quant``): a dense tree is quantized once at
 construction (``quantization.quantize_params``, the reference
@@ -119,6 +122,8 @@ ticks run eagerly, as the CPU's always do, and ``mesh_info`` says so.
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
 import functools
 import logging
@@ -307,6 +312,8 @@ def _warn_attn_downgrade(reason: str, detail: str) -> None:
 _SPEC_DRY_AFTER = 4
 # Cap on the doubling re-arm cooldown (dry probe-hit rounds).
 _SPEC_COOLDOWN_MAX = 256
+# A tick phase's stand-in while no engine.tick span is open.
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _prompt_lookup(chain: Sequence[int], k: int,
@@ -389,6 +396,9 @@ class _SlotState:
     deadline: Optional[float] = None
     tenant: Optional[str] = None
     priority_class: Optional[str] = None
+    # The shared region's step count when the slot's first decode tick
+    # starts: the row's decode steps so far are the count less this.
+    decode_from: int = 0
 
 
 @dataclasses.dataclass
@@ -679,14 +689,18 @@ class ServingEngine:
         self.graph_captures = 0
         self.graph_capture_s = 0.0
         self._warming = False
+        # Tick keys dispatched so far, warmup's included: a key's first
+        # dispatch is its graph's first replay, which uploads the graph.
+        self._dispatched_keys: set = set()
+        # The engine.tick span of the step() in progress (tracing on,
+        # outside warmup), the parent of its phases.
+        self._tick: Optional[trace_lib.Span] = None
         # Work accounting outside warmup: decode steps and prefill ticks
         # dispatched (each runs every layer's kernel once), and the most
         # prompt tokens one tick prefilled (never above prefill_budget).
         self.decode_steps_total = 0
         self.prefill_ticks = 0
         self.max_tick_prefill_tokens = 0
-        self.last_tick_prefill_tokens = 0
-        self.prefill_tokens_total = 0
         # SLO telemetry: sliding p99 windows behind the cumulative
         # histograms, and the violation thresholds (0 = none).
         window_s = float(env_registry.get(
@@ -1234,26 +1248,32 @@ class ServingEngine:
             toks = rng.integers(
                 1, max(2, self.cfg.vocab_size - 1),
                 size=max(1, prompt_len)).tolist()
-            self.submit(Request(
+            # In a fresh context: the request's span tree is its own,
+            # never a child of the tick that injected it.
+            contextvars.Context().run(self.submit, Request(
                 request_id=f'burst-{tenant}-{self._burst_seq}',
                 tokens=toks, max_new=max(1, max_new),
                 tenant=tenant, priority_class=cls))
 
-    def _admit(self) -> None:
+    def _admit(self, phase: Optional[trace_lib.Span] = None) -> None:
         """Move queued requests into free slots; prefilling slots are
         capped at the budget's row count so every one of them is
         scheduled every tick. Strict FIFO until QoS latches, then the
         DRR pick of _qos_select; either way only which request is
-        popped changes, never a tick program."""
+        popped changes, never a tick program. ``phase`` (the tick's
+        engine.tick.admit span, when traced) gets what admission did
+        and why it stopped."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         n_prefilling = sum(1 for s in self.slots
                            if s is not None and s.phase == 'prefill')
-        admitted = False
+        admitted = resets = 0
+        stop = None
         qos_on = self._qos_active
         while self.queue and free and n_prefilling < self._prefill_rows:
             if qos_on:
                 idx = self._qos_select()
                 if idx is None:
+                    stop = 'qos'
                     break   # every stream head is budget-blocked
             else:
                 idx = 0
@@ -1267,7 +1287,9 @@ class ServingEngine:
                         inference.reset_cache(self.cache)
                     self._steps_done = 0
                     _M_RESETS.inc()
+                    resets += 1
                     continue
+                stop = 'region'
                 break  # wait for running requests to drain
             if qos_on:
                 # Spend only on admission: the charge clears the
@@ -1299,7 +1321,7 @@ class ServingEngine:
                 req.temperature if req.temperature is not None
                 else self.temperature)
             n_prefilling += 1
-            admitted = True
+            admitted += 1
             # Queue wait ends where the prefill phase begins.
             ts = self._req_spans.get(req.request_id)
             if ts is not None:
@@ -1328,6 +1350,13 @@ class ServingEngine:
                     st.prefill_pos = st.reused = reuse
                 sp.finish(matched_pages=len(pages), reuse_tokens=reuse,
                           hit=bool(reuse))
+        if phase is not None:
+            if stop is None:
+                stop = ('queue_empty' if not self.queue else
+                        'no_slot' if not free else 'prefill_rows')
+            phase.set_attr(admitted=admitted, admit_stop=stop,
+                           resets=resets, queued=len(self.queue),
+                           free_slots=len(free))
 
     def _retire_prefix(self, state: _SlotState, slot_idx: int) -> None:
         """Terminal-slot prefix bookkeeping: publish the slot's
@@ -1672,34 +1701,60 @@ class ServingEngine:
         Speculation needs the fresh chain to draft from, so while it is
         armed the in-flight tick is processed first. After the tick:
         the per-token histogram, the tick EWMA, the watchdog and the
-        gauges, none of them in warmup. Returns the tokens emitted."""
+        gauges, none of them in warmup. Returns the tokens emitted.
+
+        With tracing on, a step outside warmup that finds work (a tick
+        in flight, a queued request or an occupied slot) is one
+        ``engine.tick`` span, the root of a trace of its own, with its
+        phases as children: ``engine.tick.admit`` (the boundary work
+        and admission), ``engine.tick.dispatch``, ``engine.tick.sync``
+        and ``engine.tick.process`` (docs/tracing.md)."""
+        if (self._warming or not trace_lib.enabled() or
+                not (self._pending is not None or self.queue or
+                     self.num_active())):
+            return self._step()
+        with trace_lib.span('engine.tick', root=True) as tick:
+            self._tick = tick
+            try:
+                return self._step()
+            finally:
+                self._tick = None
+
+    def _phase(self, name: str):
+        """A phase of the open engine.tick span (a context manager that
+        yields the phase's span), or a no-op without one."""
+        return _NO_SPAN if self._tick is None else trace_lib.span(name)
+
+    def _step(self) -> int:
         t0 = time.perf_counter()
-        hang = burst = None
-        if not self._warming:
-            # Warmup ticks never poll: they would burn a plan's counts.
-            hang = fault_injection.poll(
-                'engine.tick.hang',
-                kinds=(fault_injection.FaultKind.HANG,))
-            burst = fault_injection.poll(
-                'engine.tenant.burst',
-                kinds=(fault_injection.FaultKind.TENANT_BURST,))
-        if hang is not None:
-            # A wedged tick, acted out: the watchdog sees it as real.
-            time.sleep(float(hang.params.get('seconds', 0.05)))
-        if burst is not None:
-            self._inject_tenant_burst(burst.params)
-        if self._kv_imports:
-            # Remote pages first: a request whose pages were queued
-            # before its submit sees them in this tick's admission.
-            self._apply_kv_imports()
-        self._apply_cancellations()
-        self._expire_deadlines()
-        if self._qos_active:
-            # Both act through _cancel_now, so a freed slot is
-            # admissible in this tick's _admit.
-            self._qos_shed_queue()
-            self._qos_maybe_preempt()
-        self._admit()
+        with self._phase('engine.tick.admit') as phase:
+            hang = burst = None
+            if not self._warming:
+                # Warmup ticks never poll: they would burn a plan's
+                # counts.
+                hang = fault_injection.poll(
+                    'engine.tick.hang',
+                    kinds=(fault_injection.FaultKind.HANG,))
+                burst = fault_injection.poll(
+                    'engine.tenant.burst',
+                    kinds=(fault_injection.FaultKind.TENANT_BURST,))
+            if hang is not None:
+                # A wedged tick, acted out: the watchdog sees it as real.
+                time.sleep(float(hang.params.get('seconds', 0.05)))
+            if burst is not None:
+                self._inject_tenant_burst(burst.params)
+            if self._kv_imports:
+                # Remote pages first: a request whose pages were queued
+                # before its submit sees them in this tick's admission.
+                self._apply_kv_imports()
+            self._apply_cancellations()
+            self._expire_deadlines()
+            if self._qos_active:
+                # Both act through _cancel_now, so a freed slot is
+                # admissible in this tick's _admit.
+                self._qos_shed_queue()
+                self._qos_maybe_preempt()
+            self._admit(phase)
         self._tick_accepted = 0
         emitted = 0
         # The capacity guard, checked before the flush with counts that
@@ -1711,10 +1766,18 @@ class ServingEngine:
                 self._spec_candidates() and not self._spec_dry):
             prev, self._pending = self._pending, None
             emitted += self._process_tick(prev)
-            self._admit()       # the flush may have freed slots
-        if spec_may:
-            self._spec_round()
-        new_entry = self._dispatch_tick()
+            # The flush may have freed slots: a second admission.
+            with self._phase('engine.tick.admit') as phase:
+                self._admit(phase)
+        with self._phase('engine.tick.dispatch') as phase:
+            if spec_may:
+                self._spec_round()
+            new_entry = self._dispatch_tick()
+            if phase is not None:
+                phase.set_attr(
+                    key=None if new_entry is None else new_entry['key'],
+                    first_replay=(new_entry is not None and
+                                  new_entry['first']))
         prev, self._pending = self._pending, new_entry
         emitted += self._process_tick(prev)
         # Per-token latency at tick granularity: the interval between
@@ -1967,11 +2030,29 @@ class ServingEngine:
                 chunk_meta.append({'row': j, 'slot': slot_idx,
                                    'epoch': st.epoch, 'n': ln,
                                    'last': last, 'start': st.prefill_pos})
+        first = key not in self._dispatched_keys
+        self._dispatched_keys.add(key)
+        # The tick's device time (traced ticks only): a pair of timing
+        # events around the input copy and the replay, read once the
+        # tick is processed; on the CPU the body runs here, so the host
+        # clock times it.
+        timer = None
+        if self._tick is not None:
+            timer = ((torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)) if cuda
+                     else [time.perf_counter(), None])
+            if cuda:
+                timer[0].record()
         with self._op('tick', key, stage.numpy().copy(), self._tp_check):
             self._in_dev.copy_(stage, non_blocking=cuda)
             if cuda:
                 self._stage_events[ring].record()
             packed = self._launch(key)
+            if timer is not None:
+                if cuda:
+                    timer[1].record()
+                else:
+                    timer[1] = time.perf_counter()
             if self._tp_check:
                 self._check_replicas()
         # Out of the program's static output before it can run again.
@@ -1980,10 +2061,8 @@ class ServingEngine:
         if cuda:
             self._out_events[ring].record()
 
-        self.last_tick_prefill_tokens = budget_used
         if prefilling and not self._warming:
             _M_PREFILL_TOKENS.inc(budget_used)
-            self.prefill_tokens_total += budget_used
             self.prefill_ticks += 1
             self.max_tick_prefill_tokens = max(
                 self.max_tick_prefill_tokens, budget_used)
@@ -2001,6 +2080,7 @@ class ServingEngine:
                 # The first token is already in the device token vector;
                 # the slot decodes from the next tick on.
                 st.phase = 'decode'
+                st.decode_from = self._steps_done + (spec or n)
                 if ts is not None:
                     ps = ts.pop('prefill', None)
                     if ps is not None:
@@ -2014,13 +2094,41 @@ class ServingEngine:
                         parent=ts['request'], slot=m['slot'])
         if n and not self._warming:
             self.decode_steps_total += n
-        self._steps_done += spec or n
         # Which occupant each decoded column belongs to: by the time
         # this tick syncs, a slot may have been freed and recycled.
         snapshot = [(i, s.epoch) for i, s in enumerate(self.slots)
                     if s is not None and active_list[i]]
+        device = None
+        if timer is not None:
+            device = (self._device_span(key, spec or n, snapshot,
+                                        chunk_meta), timer)
+        self._steps_done += spec or n
         return {'out': out, 'event': self._out_events[ring], 'n': n,
-                'spec': spec, 'snapshot': snapshot, 'chunks': chunk_meta}
+                'spec': spec, 'snapshot': snapshot, 'chunks': chunk_meta,
+                'key': key, 'first': first, 'device': device}
+
+    def _device_span(self, key: tuple, n: int, snapshot: List[tuple],
+                     chunks: List[Dict[str, Any]]) -> trace_lib.Span:
+        """The engine.tick.device span of a tick just dispatched (called
+        before the shared region's step count moves): its kind, decode
+        steps (or verify width) ``n``, live decode ``rows``, the ``keys``
+        those rows attend over the n steps (step j of a row with c keys
+        before it attends c + j + 1), and its prefill tokens, chunks and
+        query-key pairs. It ends with ``device_ms`` when the tick is
+        processed."""
+        keys = 0
+        if n:
+            for i, _ in snapshot:
+                st = self.slots[i]
+                c = st.prompt_len + self._steps_done - st.decode_from
+                keys += n * c + n * (n + 1) // 2
+        pairs = sum(((m['start'] + m['n']) * (m['start'] + m['n'] + 1) -
+                     m['start'] * (m['start'] + 1)) // 2 for m in chunks)
+        return trace_lib.start_span(
+            'engine.tick.device', parent=self._tick, kind=key[0], n=n,
+            rows=len(snapshot) if n else 0, keys=keys,
+            prefill_tokens=sum(m['n'] for m in chunks), chunks=len(chunks),
+            prefill_pairs=pairs)
 
     def _emit_first_token(self, state: _SlotState, tok: int,
                           now: float) -> List[int]:
@@ -2067,19 +2175,38 @@ class ServingEngine:
         gauge.set(value if p99 is None else p99, exemplar=exemplar)
 
     def _process_tick(self, entry: Optional[Dict[str, Any]]) -> int:
-        if entry is None:
+        """Wait for a dispatched tick's outputs (the sync), then hand
+        its tokens to their requests. Returns the tokens emitted. A
+        traced step has both phases even with no tick to process."""
+        if entry is None and self._tick is None:
             return 0
-        emitted = 0
-        # TTFT and ITL are stamped here, as the reference stamps them:
-        # after tick N+1 was launched and before the wait on tick N's
-        # output event. On the card tick N may still be running at this
-        # instant, so a stamp can lead the tokens' arrival on the host
-        # by up to the rest of tick N's device time.
+        with self._phase('engine.tick.sync'):
+            if entry is not None and entry['event'] is not None:
+                self._wait(entry['event'])
+        # TTFT and ITL end here, once the tick's tokens are on the host
+        # (the reference stamps them before the wait; on the CPU nothing
+        # runs in between).
         now = time.time()
         now_pc = time.perf_counter()
+        with self._phase('engine.tick.process') as phase:
+            emitted = (0 if entry is None else
+                       self._emit_tick(entry, now, now_pc))
+            if phase is not None:
+                phase.set_attr(emitted=emitted)
+        if entry is not None and entry['device'] is not None:
+            sp, (start, end) = entry['device']
+            sp.finish(device_ms=(end - start) * 1e3
+                      if isinstance(start, float)
+                      else start.elapsed_time(end))
+        return emitted
+
+    def _emit_tick(self, entry: Dict[str, Any], now: float,
+                   now_pc: float) -> int:
+        """Credit a synced tick's tokens to the slots that still hold
+        the requests it ran for; stamp first tokens at ``now`` and
+        token batches at ``now_pc``."""
+        emitted = 0
         fresh_by_slot: Dict[int, List[int]] = {}
-        if entry['event'] is not None:
-            self._wait(entry['event'])                       # the sync
         # The packed outputs (_tick_body), read before the buffer is
         # staged again two ticks on.
         out = entry['out'].numpy().copy()

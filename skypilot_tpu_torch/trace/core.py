@@ -21,6 +21,11 @@ Enablement and overhead:
 - Unset: :class:`span` enters and exits on one env lookup —
   no ids, no contextvar writes, no allocation beyond the manager
   itself. Hot loops can additionally gate on :func:`enabled`.
+- Set, while a ``torch.profiler`` is recording in a process that has
+  loaded torch: each :class:`span` block is also a
+  ``torch.profiler.record_function`` range of the same name, so the
+  profile's host timeline shows it on the device trace's clock. This
+  module never imports torch.
 
 Cross-boundary propagation uses one wire form, the W3C traceparent
 string ``00-<32hex trace>-<16hex span>-01``:
@@ -49,6 +54,7 @@ import logging
 import os
 import random
 import re
+import sys
 import threading
 from typing import Any, Callable, Dict, Iterator, Optional, Union
 
@@ -319,6 +325,7 @@ class Span:
 def start_span(name: str,
                parent: Union[Span, SpanContext, None] = None,
                slow_ok: bool = False,
+               root: bool = False,
                **attrs: Any) -> Span:
     """Start a span WITHOUT activating it (explicit-parent workflows:
     the serving engine tracks per-request spans across driver-loop
@@ -335,12 +342,15 @@ def start_span(name: str,
     for spans that are long-lived by construction (controller
     lifetimes, cloud provisioning, bench timed sections), where 30s
     is the happy path, not an anomaly.
+
+    ``root=True`` starts a trace of its own whatever is ambient (the
+    serving engine's ticks, which belong to no request).
     """
     recorded = enabled()
     if not recorded:
         return Span(name, '', '', None, dict(attrs), False,
                     slow_ok=slow_ok)
-    if parent is None:
+    if parent is None and not root:
         parent = _current.get()
         if parent is None:
             parent = _env_context()
@@ -377,34 +387,43 @@ class span:
         def bulk_provision(...): ...
 
     Disabled mode (no SKYTPU_TRACE_DIR): enter/exit are one env
-    lookup and yield None — safe on warm paths.
+    lookup and yield None — safe on warm paths. Enabled, the block is
+    also a ``torch.profiler`` range while a profiler records.
     """
 
-    __slots__ = ('_name', '_parent', '_attrs', '_slow_ok', '_span',
-                 '_token')
+    __slots__ = ('_name', '_parent', '_attrs', '_slow_ok', '_root',
+                 '_span', '_token', '_range')
 
     def __init__(self, name: str,
                  parent: Union[Span, SpanContext, None] = None,
                  slow_ok: bool = False,
+                 root: bool = False,
                  **attrs: Any) -> None:
         self._name = name
         self._parent = parent
         self._slow_ok = slow_ok
+        self._root = root
         self._attrs = attrs
         self._span: Optional[Span] = None
         self._token = None
+        self._range = None
 
     def __enter__(self) -> Optional[Span]:
         if not enabled():
             return None
         self._span = start_span(self._name, parent=self._parent,
-                                slow_ok=self._slow_ok, **self._attrs)
+                                slow_ok=self._slow_ok, root=self._root,
+                                **self._attrs)
         self._token = _current.set(self._span)
+        self._range = _profiler_range(self._name)
         return self._span
 
     def __exit__(self, exc_type, exc, tb) -> None:
         if self._span is None:
             return
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         _current.reset(self._token)
         if exc_type is not None:
             self._span.set_attr(error=f'{exc_type.__name__}: {exc}')
@@ -418,12 +437,28 @@ class span:
         slow_ok = self._slow_ok
         attrs = self._attrs
 
+        root = self._root
+
         @functools.wraps(fn)
         def wrapper(*args: Any, **kwargs: Any):
-            with span(name, parent=parent, slow_ok=slow_ok, **attrs):
+            with span(name, parent=parent, slow_ok=slow_ok, root=root,
+                      **attrs):
                 return fn(*args, **kwargs)
 
         return wrapper
+
+
+def _profiler_range(name: str) -> Any:
+    """An entered ``torch.profiler.record_function`` range named
+    ``name`` while a torch profiler records in this process, else None.
+    Torch is looked up in ``sys.modules``, never imported: a process
+    that has not loaded it has no profiler to record."""
+    torch = sys.modules.get('torch')
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 # ------------------------------------------------------------ emission
