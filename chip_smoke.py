@@ -25,7 +25,11 @@ Phases (any failure exits 1 and prints no result line):
    may be read; f32 (the CUDA-core route), bf16 and int8 caches (the
    split-KV tensor-core route), each launch counting its route; then
    the published max_seq 8192 (rows live up to about 8,000 columns),
-   bf16.
+   bf16; then the Mistral-7B chat engine's decode shape (B 64, S 4096,
+   rows of the chat mix at their own decode columns, 16 and 64 of them
+   live, idle rows at bound 0), bf16, timed at the kernel's split plan
+   and, in the same call, at one run a row (the plan without its cap
+   on a run's tiles).
 3. K2, chunked-prefill attention, against its plain version: first
    the bf16 q route (tensor cores) on bf16 and int8 caches at its edges
    (head_dim 16, 64 and 128; C 40 and 200; GQA 1, 4 and 8; rows at
@@ -48,8 +52,9 @@ Phases (any failure exits 1 and prints no result line):
    column no query may attend; f32, bf16 and int8 under the same bars,
    each launch counting its route; segments wider than one 64-row tile
    (4 x 17 = 68 and 8 x 17 = 136 query rows per kv head) in f32 and
-   bf16; the published max_seq 8192 (segment at column 8000), bf16. The
-   segment start is a device int32, as the engine's write frontier is.
+   bf16; the published max_seq 8192 (segments up to column 8000), bf16.
+   Each row's segment starts at its own column, an int32 [B] on the
+   device, as the engine passes each row's own write frontier.
 4. Times on the card: each kernel, its plain version, one PyTorch
    call computing the same function (scaled_dot_product_attention
    with an explicit mask; the port never calls it) and the least time
@@ -520,6 +525,91 @@ def decode_cost(args, kw, readable):
     return nbytes, 4 * rep * hd * slots * n_kv
 
 
+def serve_decode_inputs(torch, dev, seed, live):
+    """K1 at the Mistral-7B chat engine's decode shape (B 64, S 4096,
+    32/8 heads, D 128, page 128, num_pages 32): each row holds a prompt
+    and part of an answer of the chat mix's lengths (log-normal, medians
+    1020 and 129, clipped to 64-3072 and 16-1024), the answer at the
+    row's own decode columns from 3072; the first ``live`` rows are
+    occupied (bound at their own frontier), the others idle at bound 0
+    with a finished occupant's keys still in the dmask. NaN wherever the
+    kernel may not read."""
+    import numpy as np
+    b, s, n_kv, rep, hd, page, base = 64, 4096, 8, 4, 128, 128, 3072
+    rng = np.random.default_rng(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prompt = np.clip(rng.lognormal(np.log(1020), 0.8, b), 64, 3072)
+    answer = np.clip(rng.lognormal(np.log(129), 0.8, b), 16, 1024)
+    done = (rng.uniform(size=b) * answer).astype(int)
+    pos = torch.arange(s, device=dev)[None, :]
+    valid = ((pos < torch.tensor(prompt.astype(int), device=dev)[:, None]) |
+             ((pos >= base) &
+              (pos < base + torch.tensor(done, device=dev)[:, None])))
+    bounds = torch.tensor([base + int(done[r]) if r < live else 0
+                           for r in range(b)], dtype=torch.int32,
+                          device=dev)
+    readable = valid & (pos < bounds[:, None])
+    q = torch.randn((b, n_kv * rep, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    kc = torch.randn((b, s, n_kv, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    vc = torch.randn((b, s, n_kv, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    kc[~readable] = float('nan')
+    vc[~readable] = float('nan')
+    k_self = torch.randn((b, n_kv, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    v_self = torch.randn((b, n_kv, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    args = (q, kc, vc, valid, bounds, k_self, v_self, None, None)
+    return args, dict(page=page, num_pages=s // page), readable
+
+
+def phase_decode_serve(torch, dev, seed, entry):
+    """K1 at the chat engine's decode shape (``serve_decode_inputs``),
+    16 and 64 of 64 rows live: against its plain version, then timed
+    with the split plan the kernel takes (runs of at most
+    ``split_kv.RUN_TILES`` tiles) and, in the same call, with one run a
+    (row, kv head) (the plan without that cap); the bound as phase 4
+    counts it."""
+    from skypilot_tpu_torch.ops import decode_attention as da
+    from skypilot_tpu_torch.ops import split_kv
+    cap = split_kv.RUN_TILES
+    for live in (16, 64):
+        args, kw, readable = serve_decode_inputs(torch, dev, seed, live)
+        got = da.paged_gqa_decode_attention(*args, **kw)
+        want = da.paged_decode_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err, ok = compare(got, want)
+        finite = bool(torch.isfinite(got.float()).all())
+        check(finite and ok, f'K1 at the chat shape, {live} rows live, '
+              'disagrees with its plain version')
+        nbytes, ops = decode_cost(args, kw, readable)
+        sets = copies_of(args, nbytes)
+        call = (lambda *a: da.paged_gqa_decode_attention(*a, **kw))
+        plan = split_kv.tiles_per_split(64 * 8, kw['num_pages'] * 2,
+                                        split_kv.sm_count(dev))
+        ms = time_ms(call, sets, iters=100)
+        split_kv.RUN_TILES = kw['num_pages'] * 2
+        try:
+            whole = split_kv.tiles_per_split(64 * 8, kw['num_pages'] * 2,
+                                             split_kv.sm_count(dev))
+            whole_ms = time_ms(call, sets, iters=100)
+        finally:
+            split_kv.RUN_TILES = cap
+        bound_ms, _ = bound(nbytes, ops, 'bfloat16')
+        entry[f'serve{live}'] = dict(
+            max_abs_err=err, ms=ms, split_tiles=plan, one_run_ms=whole_ms,
+            one_run_split_tiles=whole, bound_ms=bound_ms)
+        log(f'K1 at the chat shape, {live}/64 rows live: max_abs_err '
+            f'{err:.3g} (within bar: {ok}), finite {finite}; kernel '
+            f'{ms:.4f} ms at {plan} tiles a split, {whole_ms:.4f} ms at '
+            f'{whole} (one run a row); bound {bound_ms:.4f} ms')
+        del sets
+    entry['serve_shape'] = ('B 64, S 4096, 32/8 heads, D 128, bf16, rows '
+                            'of the chat mix, idle rows at bound 0')
+
+
 def phase_decode(torch, dev, seed, report):
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import decode_attention as da
@@ -588,6 +678,7 @@ def phase_decode(torch, dev, seed, report):
         f'{entry["long_ms"]:.4f}, plain {entry["long_plain_ms"]:.4f}, '
         f'library {entry["long_library_ms"]:.4f}, bound '
         f'{entry["long_bound_ms"]:.4f}')
+    phase_decode_serve(torch, dev, seed, entry)
     report.append(entry)
 
 
@@ -787,15 +878,17 @@ def chunk_library_ms(torch, args):
 
 def verify_inputs(torch, dev, kind, seed, shape=None):
     """Phase-3b inputs at Llama-3.1-8B serving shapes with spec_k 4 (B 8,
-    V 5, 32/8 heads, head_dim 128, S 1024, page 128): the segment at
-    column 700 (188 decode steps past a 512-token prompt region), n_cols
-    768 (6 pages). Row 0 is inactive (dmask all false), row 1 a recycled
-    row with only a 40-token prefix live; the others have prompts of
-    100-512 tokens and decode columns with rejected-candidate holes
-    (each earlier V-column verify tick kept its first 1-V columns). NaN
-    sits in every column no query may attend (in the scales for int8).
-    The segment start is a device int32, as the engine passes it.
-    ``shape`` (V, H, n_kv, S, seg, n_cols) replaces the defaults."""
+    V 5, 32/8 heads, head_dim 128, S 1024, page 128): each row's segment
+    at its own column, 700 less 0-188 (row 1 at 512, its first decode
+    column; row 7 at 700), n_cols 768 (6 pages). Row 0 is inactive
+    (dmask all false), row 1 a recycled row with only a 40-token prefix
+    live; the others have prompts of 100-512 tokens and decode columns
+    with rejected-candidate holes up to their own start (each earlier
+    V-column verify tick kept its first 1-V columns). NaN sits in every
+    column no query may attend (in the scales for int8). The starts are
+    an int32 [B] on the device, as the engine passes each row's own
+    write frontier. ``shape`` (V, H, n_kv, S, seg, n_cols) replaces the
+    defaults; ``seg`` is the latest start."""
     b, vq, h, n_kv, d, s, seg, n_cols = 8, 5, 32, 8, 128, 1024, 700, 768
     if shape is not None:
         vq, h, n_kv, s, seg, n_cols = shape
@@ -805,12 +898,13 @@ def verify_inputs(torch, dev, kind, seed, shape=None):
     cols = torch.arange(s, device=dev)[None, :]
     prompt = torch.tensor([0, 40, 100, 250, 333, 480, 511, 512],
                           device=dev)[:, None]
+    start = seg - torch.tensor(VERIFY_BACK, device=dev)[:, None]
     tick, pos = (cols - 512) // vq, (cols - 512) % vq
-    kept = (cols >= 512) & (cols < seg) & (pos <= tick % vq)
+    kept = (cols >= 512) & (cols < start) & (pos <= tick % vq)
     valid = (cols < prompt) | kept
     valid[0] = False
     valid[1] = cols[0] < 40
-    live = valid | ((cols >= seg) & (cols < seg + vq))
+    live = valid | ((cols >= start) & (cols < start + vq))
     ks = vs = None
     if kind == 'int8':
         k = torch.randint(-127, 128, (b, s, n_kv, d), generator=gen,
@@ -828,10 +922,13 @@ def verify_inputs(torch, dev, kind, seed, shape=None):
         v = torch.randn((b, s, n_kv, d), generator=gen, device=dev).to(qdt)
         k[~live] = float('nan')
         v[~live] = float('nan')
-    seg_t = torch.tensor(seg, dtype=torch.int32, device=dev)
+    seg_t = start[:, 0].to(torch.int32)
     return (q, k, v, valid, seg_t, ks, vs), n_cols
 
 
+# How far each row's K3 segment starts before the latest one (row 1, a
+# recycled row, at its first decode column; row 7 the latest).
+VERIFY_BACK = (61, 188, 5, 130, 97, 23, 160, 0)
 # K3 segments wider than one 64-row tile (V, H, n_kv, S, seg, n_cols):
 # Llama-3.1-8B's 32/8 heads with spec_k 16 (4 x 17 = 68 rows), and 32/4
 # heads with spec_k 16 (8 x 17 = 136 rows: two bf16 row chunks, three
@@ -853,17 +950,16 @@ def verify_plain(fa, args, n_cols):
 def verify_cost(args, n_cols):
     """(bytes, operations) this data needs, as decode_cost counts K1's:
     q read and the output written once, each row's mask up to the end of
-    its segment, K and V (and scales) of the columns some query attends
-    (dmask-true plus the segment); 4 * head_dim operations per attended
-    (query row, column, head)."""
+    its own segment, K and V (and scales) of the columns some query
+    attends (dmask-true plus the segment); 4 * head_dim operations per
+    attended (query row, column, head)."""
     q, k, _, valid, seg, ks, _ = args
     b, vq, h, d = q.shape
     n_kv = k.shape[2]
-    seg = int(seg)
-    end = min(n_cols, seg + vq)
-    dmask = int(valid[:, :end].sum())
+    ends = [min(n_cols, int(x) + vq) for x in seg.reshape(-1).expand(b)]
+    dmask = sum(int(valid[r, :end].sum()) for r, end in enumerate(ends))
     cols = dmask + b * vq
-    nbytes = (2 * q.numel() * q.element_size() + b * end +
+    nbytes = (2 * q.numel() * q.element_size() + sum(ends) +
               2 * cols * n_kv * d * k.element_size() +
               (2 * cols * n_kv * ks.element_size() if ks is not None else 0))
     attended = vq * dmask + b * vq * (vq + 1) // 2
@@ -884,7 +980,7 @@ def verify_check(torch, fa, args, n_cols, kind, tag):
     # The inactive row's first query attends its own column alone.
     q, k, v, valid, seg, ks, vs = args
     rep = q.shape[2] // k.shape[2]
-    seg = int(seg)
+    seg = int(seg.reshape(-1)[0])
     own = v[0, seg].float()
     if vs is not None:
         own = own * vs[0, seg].float()[:, None]
@@ -941,8 +1037,8 @@ def phase_verify(torch, dev, seed, report):
                          long_plain_ms=plain_ms, long_bound_ms=bound_ms,
                          long_library_ms=verify_library_ms(torch, args,
                                                            n_cols),
-                         long_shape='B 8, V 5, S 8192, segment at 8000, '
-                         'n_cols 8064, 32/8 heads, D 128, bf16')
+                         long_shape='B 8, V 5, S 8192, segments at '
+                         '7812-8000, n_cols 8064, 32/8 heads, D 128, bf16')
         else:
             entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -961,15 +1057,16 @@ def phase_verify(torch, dev, seed, report):
 
 def verify_library_ms(torch, args, n_cols):
     """One scaled_dot_product_attention call with an explicit [B, 1, V,
-    end] mask (dmask | segment-causal) and GQA over the columns the
-    kernel reads; inputs laid out before the timing, NaN cleared."""
+    end] mask (dmask | each row's segment-causal) and GQA over the
+    columns the kernel reads; inputs laid out before the timing, NaN
+    cleared."""
     q, k, v, valid, seg, _, _ = args
     vq = q.shape[1]
-    seg = int(seg)
-    end = min(n_cols, seg + vq)
+    start = seg.reshape(-1, 1, 1)
+    end = min(n_cols, int(seg.max()) + vq)
     col = torch.arange(end, device=q.device)[None, None, :]
     qi = torch.arange(vq, device=q.device)[None, :, None]
-    mask = valid[:, None, :end] | ((col >= seg) & (col <= seg + qi))
+    mask = valid[:, None, :end] | ((col >= start) & (col <= start + qi))
     return sdpa_ms(torch, q.transpose(1, 2).contiguous(),
                    k[:, :end].nan_to_num(0.0).transpose(1, 2).contiguous(),
                    v[:, :end].nan_to_num(0.0).transpose(1, 2).contiguous(),
@@ -1100,8 +1197,7 @@ def profile_serve(torch, eng, prompts, profile_dir, tag, wall, n_ticks):
     from skypilot_tpu_torch.models.serving_engine import Request
     again = [Request(('profiled', i), p, max_new=32)
              for i, p in enumerate(prompts)]
-    # A fresh decode region, as the measured run had: a region used up
-    # mid-run would add the ticks of a drain and a reset.
+    # A fresh cache, as the measured run had.
     eng.reset()
     ticks = [0]
 
@@ -1830,8 +1926,8 @@ def phase_lifecycle(torch, dev, seed, card, handover):
             check(not eng._qos_active, f'{tag}: the control latched QoS')
             control = [ctrl[('ctrl', i)].tokens for i in range(len(prompts))]
             tick_s = c_wall / c_ticks
-            # A fresh decode region, as the lifecycle run's would be on a
-            # new replica (the pool, with the cache on, keeps its pages).
+            # A fresh cache, as the lifecycle run's would be on a new
+            # replica (the pool, with the cache on, keeps its pages).
             eng.reset()
             log(f'{tag}: control (untagged, FIFO) {sum(map(len, control))} '
                 f'tokens in {c_wall:.3f} s, {c_ticks} ticks, '
@@ -1971,7 +2067,9 @@ def p4_live_key_check(torch, dev, eng, tag):
     schedule (the prefix cache on or off, another slot history) puts
     them, or when other columns are dispatched; and stay within 1e-4 of
     the plain versions (which reduce by cache column, the reference's
-    order)."""
+    order). Each row's bound and segment start is its own frontier,
+    just past its last key (the decode base at least), as the engine
+    passes them."""
     from skypilot_tpu_torch.ops import _build
     from skypilot_tpu_torch.ops import decode_attention as tda
     from skypilot_tpu_torch.ops import flash_attention as tfa
@@ -2001,8 +2099,10 @@ def p4_live_key_check(torch, dev, eng, tag):
             new = torch.where(cols >= base, cols + shift, cols)
             kc[r, new], vc[r, new] = k[r, cols], v[r, cols]
             val[r, new] = True
-        seg = last + shift + 1
-        bound = torch.full((b,), seg, dtype=torch.int32, device=dev)
+        own = [max(int(r.nonzero()[:, 0].max()) + 1 if bool(r.any())
+                   else 0, base) for r in val]
+        bound = torch.tensor(own, dtype=torch.int32, device=dev)
+        seg = max(own)
         got = []
         for num_pages in (-(-seg // page), -(-s // page)):
             args = (q1, kc, vc, val, bound, *self_kv)
@@ -2017,8 +2117,10 @@ def p4_live_key_check(torch, dev, eng, tag):
                   f'{tag}: f32 K1 off its plain version')
             got.append(o1)
         k3, v3 = kc.clone(), vc.clone()
-        k3[:, seg:seg + vq], v3[:, seg:seg + vq] = seg_kv
-        seg_t = torch.tensor(seg, dtype=torch.int32, device=dev)
+        for r, start in enumerate(own):
+            k3[r, start:start + vq] = seg_kv[0][r]
+            v3[r, start:start + vq] = seg_kv[1][r]
+        seg_t = bound
         for n_cols in (seg + vq, s):
             o3 = tfa.verify_attention(q3, k3, v3, val, seg_t, n_cols=n_cols)
             ref = verify_plain(tfa, (q3, k3, v3, val, seg_t, None, None),
@@ -4139,8 +4241,8 @@ def decode_step_ms(torch, inference, params, cfg, dev, batch, context,
     """Device ms of one ``decode_step`` at ``batch`` rows on a cache of
     ``context`` live tokens a row: the step captured once with
     ``_build.capture`` (after one eager step that loads the kernels) and
-    replayed ``steps`` times between CUDA events; each replay writes the
-    next slot (the write slot comes from the cache's device ``steps``).
+    replayed ``steps`` times between CUDA events; each replay writes each
+    row's next column (its own count in the cache's device ``steps``).
     Checks finite logits and the launches per replay. With
     ``profile_tag``, ``steps`` more replays run under torch.profiler
     (``profile_run``: device time by kernel group) and the profiled
@@ -4169,8 +4271,8 @@ def decode_step_ms(torch, inference, params, cfg, dev, batch, context,
     launches = dict(_build.LAUNCHES)
     check(bool(torch.isfinite(logits).all()), 'decode step: logits not '
           'finite')
-    check(int(cache['steps']) == steps, 'decode step: the replays did not '
-          'advance the write slot')
+    check(bool((cache['steps'] == steps).all()), 'decode step: the replays '
+          'did not advance every row\'s write column')
     check(launches.get('paged_decode', 0) == steps * cfg.n_layers,
           f'decode step: launches {launches}')
     if profile_tag:

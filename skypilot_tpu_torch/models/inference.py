@@ -17,14 +17,21 @@ every product goes through ``qdot`` (Q1 on CUDA tensors); with
 run their layer products through ``qdot_a8`` (W8A8) and keep ``qdot``
 for the lm_head, as the reference does.
 
-Cache layout and slot rules are the reference's: K/V
-[n_layers, B, max_seq, n_kv, head_dim] (int8 with per-vector bf16
-scales [n_layers, B, max_seq, n_kv] when quantized); prompts occupy
-slots [0, base); decode step i writes slot base + i for every row;
-``dmask`` [B, max_seq] says which slots each row may read; ``length``
-[B] is each row's logical position. ``base`` is a host integer;
-``steps`` is a device int32 scalar, as the reference's is, so the write
-frontier ``base + steps`` never leaves the device.
+Cache layout: K/V [n_layers, B, max_seq, n_kv, head_dim] (int8 with
+per-vector bf16 scales [n_layers, B, max_seq, n_kv] when quantized);
+prompts occupy slots [0, base); ``dmask`` [B, max_seq] says which slots
+each row may read; ``length`` [B] is each row's logical position.
+``base`` is a host integer. ``steps`` [B] int32 counts each row's own
+decode columns: a row writes its next decode K/V at its own frontier
+``base + steps[b]``, so rows of unrelated lengths share no column and
+no row's answer uses up another's. Only active rows advance their
+count; a new occupant's first prefill chunk (start 0) sets it back to
+0. Rows that move in lockstep (``prefill``/``generate``, every row
+active) keep equal counts, each the reference's scalar ``steps``, and
+write the reference's columns. The frontier never leaves the device.
+A write column is held below the cache's end (``_write_columns``): a
+row past its own need, or an idle row at capacity, writes the last
+column, which no kept token of it reads.
 
 JAX donates the cache to its jitted programs so XLA updates it in
 place; here every cache tensor is written in place (index copies, never
@@ -84,8 +91,8 @@ def make_cache(cfg: LlamaConfig, batch_size: int, max_seq: int, *,
                mesh=None) -> Dict:
     """A fresh empty cache: zero K/V (int8 when ``kv_quant``, else the
     compute dtype), unit bf16 scales, zero lengths, an all-false dmask,
-    prompt region ``base`` and no decode steps (``steps`` a device int32
-    scalar). ``device=None`` means CUDA. With a ``mesh`` the cache holds
+    prompt region ``base`` and no decode columns (``steps`` [B] device
+    int32 zeros). ``device=None`` means CUDA. With a ``mesh`` the cache holds
     this rank's kv heads (``kv_heads``), the reference's ``CACHE_SPEC``
     shard."""
     dev = resolve_device(device)
@@ -100,7 +107,7 @@ def make_cache(cfg: LlamaConfig, batch_size: int, max_seq: int, *,
         'dmask': torch.zeros((batch_size, max_seq), dtype=torch.bool,
                              device=dev),
         'base': int(base),
-        'steps': torch.zeros((), dtype=torch.int32, device=dev),
+        'steps': torch.zeros((batch_size,), dtype=torch.int32, device=dev),
     }
     if kv_quant:
         cache['k_scale'] = torch.ones(shape[:4], dtype=torch.bfloat16,
@@ -187,6 +194,35 @@ def _logits(x: torch.Tensor, lm_head, cdt, mesh) -> torch.Tensor:
     return mesh.all_reduce(full)
 
 
+def _write_columns(cache: Dict, width: int) -> torch.Tensor:
+    """Each row's first write column for a segment of ``width``
+    columns: its own frontier ``base + steps[b]``, held so that the
+    segment ends inside the cache ([B] int64). Only a row with no kept
+    token at stake is held back: a row past its own need, or an idle
+    row whose count sits at capacity."""
+    base = cache['base']
+    cap = cache['k'].shape[2] - base
+    if width > cap:
+        raise ValueError(f'a {width}-column segment does not fit the '
+                         f'{cap} decode columns of the cache')
+    return base + torch.clamp(cache['steps'], max=cap - width).long()
+
+
+def _advance(cache: Dict, active: torch.Tensor, width: int) -> None:
+    """Active rows' counts move on by ``width`` columns, never past the
+    cache's end; idle rows keep theirs."""
+    steps = cache['steps']
+    cap = cache['k'].shape[2] - cache['base']
+    steps.copy_(torch.where(active, torch.clamp(steps + width, max=cap),
+                            steps))
+
+
+def _row_cells(t: torch.Tensor) -> torch.Tensor:
+    """A [B, S, ...] cache layer viewed as [B * S, ...] (no copy), for
+    writes at per-row columns."""
+    return t.view((-1,) + tuple(t.shape[2:]))
+
+
 def _host_ints(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.cpu().numpy()
@@ -201,19 +237,22 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     """Advance every row by one token; returns (logits [B, vocab] f32
     for the next token, cache updated in place).
 
-    tokens [B] are fed at each row's ``length``; their K/V are written
-    at slot base + steps for every row, but only ``active`` rows
-    ([B] bool, default all) get the slot marked readable and their
-    length advanced — an idle engine slot never contaminates a later
-    occupant. Attention reads the cache (plus each token's own K/V)
+    tokens [B] are fed at each row's ``length``; each row's K/V are
+    written at its own frontier base + steps[b], but only ``active``
+    rows ([B] bool, default all) get the slot marked readable and their
+    length and count advanced — an idle engine slot never contaminates
+    a later occupant, and writes where its own next step will. An idle
+    row reads no cache column: its logits, which no caller keeps,
+    attend to its own K/V alone, so its stale or half-written columns
+    cost the attention nothing. Attention reads the cache (plus each token's own K/V)
     by ``attn_impl`` (``decode_attention.resolve_impl``: None reads
     ``SKYTPU_DECODE_ATTN``, 'auto' is 'paged' on CUDA and 'lax' on the
     CPU): 'paged' runs ``paged_gqa_decode_attention`` (K1 on CUDA
     tensors), 'lax' the reference's cache-wide ``_gqa_decode_attention``.
     ``num_pages`` (with ``page``) bounds the region read to the first
-    num_pages * page slots, and every readable slot must lie below that
-    bound. The write slot comes from the device ``steps`` scalar:
-    nothing is read on the host. ``mesh``: this rank's shard of a
+    num_pages * page slots, and every slot an active row may read must
+    lie below that bound. The write columns come from the device
+    ``steps`` vector: nothing is read on the host. ``mesh``: this rank's shard of a
     tensor-parallel model (the module's four hooks).
     """
     cdt = cfg.compute_dtype
@@ -221,8 +260,6 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     quant = 'k_scale' in cache
     pos = cache['length']
     steps = cache['steps']
-    frontier = cache['base'] + steps                       # int32 scalar
-    slot = frontier.reshape(1).long()                      # [1] index
     valid = cache['dmask']
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
@@ -230,10 +267,17 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     impl = decode_attn.resolve_impl(attn_impl, tokens.device)
     s_max = cache['k'].shape[2]
     n_slots = s_max if num_pages is None else min(num_pages * page, s_max)
-    # Per-row live bound for page skipping: before any decode write the
-    # live slots are the ragged prompt lengths; afterwards every row
-    # extends to the shared write frontier base + steps.
-    row_bound = torch.where(steps > 0, frontier, pos).to(torch.int32)
+    # Each row's write cell in the [B * S] view of a layer.
+    cell = (torch.arange(b, device=tokens.device) * s_max +
+            _write_columns(cache, 1))
+    # Per-row live bound for page skipping: before its first decode
+    # write a row's live slots are its prompt; afterwards it extends to
+    # its own frontier base + steps[b]. An idle row reads nothing.
+    row_bound = torch.where(
+        active, torch.where(steps > 0, cache['base'] + steps, pos),
+        0).to(torch.int32)
+    if impl != 'paged':
+        readable = valid[:, :n_slots] & active[:, None]
     cos, sin = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
 
     row = _partial(mesh)
@@ -258,25 +302,27 @@ def decode_step(params: Dict, cache: Dict, tokens: torch.Tensor,
             # The length-aware slice: only the first n_slots columns.
             o = _gqa_decode_attention(
                 q, cache['k'][li][:, :n_slots], cache['v'][li][:, :n_slots],
-                valid[:, :n_slots], k_self=k, v_self=v,
+                readable, k_self=k, v_self=v,
                 k_scale=None if ks is None else ks[:, :n_slots],
                 v_scale=None if vs is None else vs[:, :n_slots])
         x = x + _tp_sum(qdot(o, lp['wo'], cdt, row), cdt, mesh)
         h = _rmsnorm(x, lp['mlp_norm'], cfg.norm_eps)
         x = x + _tp_sum(mlp_delta(h, lp, cfg, mesh=mesh), cdt, mesh)
-        # In-place sliver write at (layer, slot) for every row.
+        # In-place sliver write at (layer, row, own column) per row.
         if quant:
             k, sk = quantize_kv(k)
             v, sv = quantize_kv(v)
-            cache['k_scale'][li].index_copy_(1, slot, sk[:, None])
-            cache['v_scale'][li].index_copy_(1, slot, sv[:, None])
-        cache['k'][li].index_copy_(1, slot, k[:, None].to(cache['k'].dtype))
-        cache['v'][li].index_copy_(1, slot, v[:, None].to(cache['v'].dtype))
+            _row_cells(cache['k_scale'][li]).index_copy_(0, cell, sk)
+            _row_cells(cache['v_scale'][li]).index_copy_(0, cell, sv)
+        _row_cells(cache['k'][li]).index_copy_(0, cell,
+                                               k.to(cache['k'].dtype))
+        _row_cells(cache['v'][li]).index_copy_(0, cell,
+                                               v.to(cache['v'].dtype))
     x = _rmsnorm(x, params['final_norm'], cfg.norm_eps)
     logits = _logits(x, params['lm_head'], cdt, mesh)
-    cache['dmask'].index_copy_(1, slot, active[:, None])
+    cache['dmask'].view(-1).index_copy_(0, cell, active)
     cache['length'].copy_(torch.where(active, pos + 1, pos))
-    cache['steps'].add_(1)
+    _advance(cache, active, 1)
     return logits, cache
 
 
@@ -295,7 +341,8 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
     ``live`` False are inert: their cache rows, dmask and length keep
     their bits, even when they repeat a live row's slot (their logits
     are unspecified). ``prompt_base`` is the prompt region size; all
-    chunk writes land below it.
+    chunk writes land below it. A live row's first chunk (start 0) is a
+    new occupant: its slot's decode column count returns to 0.
 
     Per layer the slot rows' prompt regions are gathered and padded by
     C slots of headroom (so a C-wide write at start <= base - 1 never
@@ -403,6 +450,9 @@ def prefill_chunk(params: Dict, cache: Dict, tokens: torch.Tensor,
     length = torch.where(live_d, ends,
                          cache['length'].index_select(0, slots_d))
     cache['length'].index_copy_(0, slots_d, length.index_select(0, owner))
+    steps = torch.where(live_d & (starts_d == 0), 0,
+                        cache['steps'].index_select(0, slots_d))
+    cache['steps'].index_copy_(0, slots_d, steps.index_select(0, owner))
     return logits, cache
 
 
@@ -437,27 +487,35 @@ def _sample(logits: torch.Tensor, temperature, top_k: int = 0,
 
 def _verify_logits(params: Dict, cache: Dict, fed: torch.Tensor,
                    cfg: LlamaConfig, num_pages: Optional[int],
-                   page: Optional[int], mesh=None) -> torch.Tensor:
+                   page: Optional[int], mesh=None,
+                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward of ``verify_step``: feed ``fed`` [B, V] at positions
     length .. length + V - 1, write its K/V (quantized for int8 caches)
-    at the frontier columns [base + steps, base + steps + V) of every
-    row BEFORE attending, and attend through ``verify_attention`` over
-    the first ``num_pages * page`` columns (default all). Returns the
-    f32 logits [B, V, vocab]; the cache's K/V (and scales) change in
-    place, its dmask, length and steps do not. The segment start stays
-    on the device; the caller keeps the segment inside the cache (the
-    engine checks it against its host mirror of ``steps``)."""
+    at each row's own frontier columns [base + steps[b], .. + V)
+    (``_write_columns``) BEFORE attending, and attend through
+    ``verify_attention`` over the first ``num_pages * page`` columns
+    (default all). Returns the f32 logits [B, V, vocab]; the cache's K/V
+    (and scales) change in place, its dmask, length and steps do not.
+    The segment starts stay on the device; the caller keeps every
+    active row's segment inside the columns read (the engine checks it
+    against its host mirror of ``steps``). Rows outside ``active`` ([B]
+    bool, default all) read no cache column but their own segment."""
     cdt = cfg.compute_dtype
     b, v_len = fed.shape
     dev = fed.device
     quant = 'k_scale' in cache
     hd = cfg.head_dim
-    frontier = cache['base'] + cache['steps']              # int32 scalar
     s_max = cache['k'].shape[2]
     page = page or decode_attn.default_page()
     n_cols = s_max if num_pages is None else min(num_pages * page, s_max)
-    seg = frontier.long() + torch.arange(v_len, device=dev)  # [V]
+    start = _write_columns(cache, v_len)                    # [B]
+    # The segment's cells in the [B * S] view of a layer, row-major.
+    cell = ((torch.arange(b, device=dev) * s_max + start)[:, None] +
+            torch.arange(v_len, device=dev)).reshape(-1)
+    seg_start = start.to(torch.int32)
     valid = cache['dmask']
+    if active is not None:
+        valid = valid & active[:, None]
     positions = (cache['length'].long()[:, None] +
                  torch.arange(v_len, device=dev)[None, :])
     cos, sin = rope_tables(positions, hd, cfg.rope_theta)
@@ -473,12 +531,16 @@ def _verify_logits(params: Dict, cache: Dict, fed: torch.Tensor,
         if quant:
             k, sk = quantize_kv(k)
             v, sv = quantize_kv(v)
-            cache['k_scale'][li].index_copy_(1, seg, sk)
-            cache['v_scale'][li].index_copy_(1, seg, sv)
-        cache['k'][li].index_copy_(1, seg, k.to(cache['k'].dtype))
-        cache['v'][li].index_copy_(1, seg, v.to(cache['v'].dtype))
+            _row_cells(cache['k_scale'][li]).index_copy_(0, cell,
+                                                         sk.flatten(0, 1))
+            _row_cells(cache['v_scale'][li]).index_copy_(0, cell,
+                                                         sv.flatten(0, 1))
+        _row_cells(cache['k'][li]).index_copy_(
+            0, cell, k.flatten(0, 1).to(cache['k'].dtype))
+        _row_cells(cache['v'][li]).index_copy_(
+            0, cell, v.flatten(0, 1).to(cache['v'].dtype))
         o = verify_attention(
-            q, cache['k'][li], cache['v'][li], valid, frontier,
+            q, cache['k'][li], cache['v'][li], valid, seg_start,
             cache['k_scale'][li] if quant else None,
             cache['v_scale'][li] if quant else None, n_cols=n_cols)
         x = x + _tp_sum(qdot(o.reshape(b, v_len, -1), lp['wo'], cdt, row),
@@ -516,7 +578,8 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     Rollback: of the segment columns only f_0 .. f_a become readable,
     and only for ``active`` rows ([B] bool, default all); the rejected
     candidates' K/V stay dmask-false for good. Active rows' length
-    advances by a + 1; ``steps`` (the device scalar) by V for every row.
+    advances by a + 1 and their own column count by V; idle rows keep
+    both.
     No host sync: every result stays on the device, the cache's
     tensors are updated in place.
 
@@ -532,7 +595,8 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=dev)
     logits = _verify_logits(params, cache, torch.cat(
-        [tokens[:, None], drafts], dim=1), cfg, num_pages, page, mesh)
+        [tokens[:, None], drafts], dim=1), cfg, num_pages, page, mesh,
+        active)
     m = torch.stack([_sample(logits[:, i], temperature, top_k, generator)
                      for i in range(v_len)], dim=1)             # [B, V]
 
@@ -551,12 +615,13 @@ def verify_step(params: Dict, cache: Dict, tokens: torch.Tensor,
     # this tick holds its first token until it joins the active mask).
     next_tok = torch.where(active, next_tok, tokens)
 
-    seg = (cache['base'] + cache['steps']).long() + jidx[0]
-    cache['dmask'].index_copy_(1, seg, active[:, None] & (jidx <=
-                                                          a[:, None]))
+    cell = ((torch.arange(b, device=dev) * cache['k'].shape[2] +
+             _write_columns(cache, v_len))[:, None] + jidx).reshape(-1)
+    cache['dmask'].view(-1).index_copy_(
+        0, cell, (active[:, None] & (jidx <= a[:, None])).reshape(-1))
     pos = cache['length']
     cache['length'].copy_(torch.where(active, pos + a + 1, pos))
-    cache['steps'].add_(v_len)
+    _advance(cache, active, v_len)
     return emit, counts, next_tok, cache
 
 
@@ -574,7 +639,7 @@ def prefill(params: Dict, tokens: torch.Tensor, lengths, cfg: LlamaConfig,
     positions hold garbage K/V that the dmask (slots < length) never
     lets a read reach. ``kv_quant`` stores K/V as int8 with per-vector
     bf16 scales (zero scales past S, as the reference pads them).
-    The cache has prompt region ``base`` = S and no decode steps.
+    The cache has prompt region ``base`` = S and no decode columns.
     ``mesh``: as ``decode_step``'s (the cache holds this rank's heads).
     """
     cdt = cfg.compute_dtype
@@ -627,7 +692,7 @@ def prefill(params: Dict, tokens: torch.Tensor, lengths, cfg: LlamaConfig,
     cache.update(
         length=lengths,
         dmask=torch.arange(s_max, device=dev)[None, :] < lengths[:, None],
-        base=s, steps=torch.zeros((), dtype=torch.int32, device=dev))
+        base=s, steps=torch.zeros((b,), dtype=torch.int32, device=dev))
     return logits, cache
 
 

@@ -191,8 +191,8 @@ class PrefixCache:
         _M_POOL.touch()
         # Directory version: bumped whenever the hash->page mapping
         # changes (insertions, evictions). Lookup results are a pure
-        # function of (tokens, version), which is what lets the engine
-        # memoize its per-tick _fits lookup.
+        # function of (tokens, version), so a memo keyed on it stays
+        # true.
         self.version = 0
         # prefix_summary memo: (version, bound, dict).
         self._summary_cache: Optional[Tuple[int, int, Dict]] = None
@@ -297,7 +297,8 @@ class PrefixCache:
         row is rewritten: a hit's first chunk starts at the cached
         boundary, where ``prefill_chunk`` keeps the row's old mask, so
         the previous occupant's prompt tail and decode columns must go
-        dark here. ``steps`` is not touched."""
+        dark here, and the row's decode column count returns to 0: the
+        new occupant writes its decode columns from ``base`` on."""
         with self.op('copy_in', slot, list(page_ids), cached_len):
             p = self.page
             for j, src in enumerate(page_ids):
@@ -307,6 +308,7 @@ class PrefixCache:
             cache['dmask'][slot, :cached_len].fill_(True)
             cache['dmask'][slot, cached_len:].fill_(False)
             cache['length'][slot].fill_(cached_len)
+            cache['steps'][slot].fill_(0)
         return cache
 
     def _mine(self, t: torch.Tensor, head_dim: int) -> torch.Tensor:

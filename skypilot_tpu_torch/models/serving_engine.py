@@ -6,10 +6,14 @@ chunked prefill under a per-tick token budget (each admitted prompt
 streams into its slot's prompt-region KV ``prefill_chunk`` tokens per
 tick, at most ``budget // chunk`` prefilling rows per tick, fused with
 the decode chunk of the active slots); an ``n``-step decode scan per
-tick whose page count follows cache occupancy; slot epochs so a tick
-in flight never credits tokens to a slot's next occupant; admission
-that guarantees every admitted request finishes, with a cache reset
-when the decode region is exhausted and no slot is occupied.
+tick whose page count follows the longest live row; slot epochs so a
+tick in flight never credits tokens to a slot's next occupant. Each
+slot owns its decode columns (``inference``'s per-row ``steps``): a
+row writes at its own frontier, its count returns to 0 with its next
+occupant, and ``max_new <= decode_capacity()`` (checked at submit) is
+all a request needs to finish. So admission takes the next request
+whenever a slot is free and the prefill-row cap allows, however long
+the answers in the other slots run.
 
 Each tick is one program, keyed as the reference keys its jitted tick
 programs: decode ``(n, num_pages)``, mixed ``(n, num_pages, spec)``
@@ -38,8 +42,8 @@ greedy decode slot, and a tick with drafts runs one batched
 ``inference.verify_step`` instead of the decode chunk; each row
 advances by its accepted prefix + 1, and greedy output stays equal to
 speculation off. A capacity guard falls back to the decode chunk when
-a verify segment could strand an admitted request, and a dry-spell
-latch keeps no-match traffic on the pipelined path.
+a verify segment could strand a row in its own columns, and a
+dry-spell latch keeps no-match traffic on the pipelined path.
 
 Automatic prefix caching (``prefix_cache`` / ``SKYTPU_PREFIX_CACHE``;
 ``models/prefix_cache.py``): an admission looks up the prompt's chain
@@ -174,6 +178,9 @@ _M_PREFILL_TOKENS = metrics_lib.counter(
     'skytpu_engine_prefill_tokens_total',
     'Prompt tokens prefilled into slot KV caches (chunked prefill; '
     'per tick this never exceeds the prefill token budget).')
+# The reference's series, kept so a scrape lists what it lists: the
+# port's slots own their decode columns, so it never rebuilds the
+# cache and the series stays 0.
 _M_RESETS = metrics_lib.counter(
     'skytpu_engine_cache_resets_total',
     'KV-cache rebuilds after decode-region exhaustion.')
@@ -396,9 +403,6 @@ class _SlotState:
     deadline: Optional[float] = None
     tenant: Optional[str] = None
     priority_class: Optional[str] = None
-    # The shared region's step count when the slot's first decode tick
-    # starts: the row's decode steps so far are the count less this.
-    decode_from: int = 0
 
 
 @dataclasses.dataclass
@@ -494,8 +498,8 @@ class ServingEngine:
         self.temperature = temperature
         self.top_k = top_k
         # Length-aware decode dispatch: the page count read per decode
-        # chunk covers the live region [0, base + steps + n), rounded
-        # per num_pages_for.
+        # chunk covers [0, base + the longest decode row's own count +
+        # n), rounded per num_pages_for.
         if not paged_dispatch:
             raise ValueError('paged_dispatch=False (full-cache decode '
                              'reads) is not ported: the engine always '
@@ -552,7 +556,7 @@ class ServingEngine:
         # Speculative decoding: off unless asked for (constructor or
         # SKYTPU_SPEC_DECODE). An explicit spec_k of 0 means no draft
         # tokens, so speculation off; so does a verify segment wider
-        # than the decode region.
+        # than a slot's decode columns.
         enable_spec = spec_decode
         if enable_spec is None:
             enable_spec = env_registry.is_enabled(
@@ -570,8 +574,8 @@ class ServingEngine:
         if enable_spec and self._spec_v > self.decode_capacity():
             logger.warning(
                 'Speculative decoding disabled: the verify segment (%d '
-                'columns) exceeds the decode region (%d); raise max_seq '
-                'or lower SKYTPU_SPEC_K.', self._spec_v,
+                'columns) exceeds a slot\'s decode columns (%d); raise '
+                'max_seq or lower SKYTPU_SPEC_K.', self._spec_v,
                 self.decode_capacity())
             enable_spec = False
         self.spec_decode = bool(enable_spec)
@@ -608,7 +612,17 @@ class ServingEngine:
         # The request span's start is the TTFT histogram's timing
         # source, its trace id the exemplar.
         self._req_spans: Dict[Any, Dict[str, Any]] = {}
-        self._steps_done = 0
+        # Each slot's own decode column count, the host mirror of the
+        # cache's device ``steps``: moved at dispatch as the tick moves
+        # it (active rows by their steps, held at the cache's end), set
+        # to 0 at admission (the new occupant's first chunk or prefix
+        # copy-in zeroes the device's). It sets a tick's page count and
+        # the speculation guard; nothing is read back.
+        self._cols = np.zeros((batch_size,), np.int64)
+        self._col_cap = cache_cols - max_prompt
+        # The decode chunk a tick runs, folded to a power of two as the
+        # reference folds it.
+        self._chunk_steps = 1 << (self.decode_chunk.bit_length() - 1)
         self._epoch = 0
         self._seq = 0
         # The in-flight tick (double buffering).
@@ -628,10 +642,6 @@ class ServingEngine:
         # submitted after its pages were queued sees them at its own
         # admission. deque append/popleft are atomic.
         self._kv_imports: collections.deque = collections.deque()
-        # Single-entry memo of the queue head's _fits suffix lookup:
-        # (Request object, pool directory version, suffix). The strong
-        # reference keeps the identity key collision-proof.
-        self._fits_memo: Optional[tuple] = None
         # EWMA of working-tick durations outside warmup: the time base
         # of estimate_wait_s() (None until the first measured tick).
         self._tick_ewma: Optional[float] = None
@@ -688,6 +698,10 @@ class ServingEngine:
         # (the counterpart of the reference's compiled-program count).
         self.graph_captures = 0
         self.graph_capture_s = 0.0
+        # Admissions, counted while tracing, that a region shared by
+        # every slot, even compacted to its longest live occupant, would
+        # have refused (engine.tick.admit's past_frontier).
+        self.admits_past_frontier = 0
         self._warming = False
         # Tick keys dispatched so far, warmup's included: a key's first
         # dispatch is its graph's first replay, which uploads the graph.
@@ -803,45 +817,27 @@ class ServingEngine:
             self._capture()
 
     def _tick_keys(self) -> List[tuple]:
-        """Every tick program a run can dispatch: the reference's
-        warmup() key set (skypilot_tpu/models/serving_engine.py:955-1050).
-        Decode chunks fold to powers of two as step() folds them; the
-        main chunk runs at any occupancy (page-stride enumeration: the
-        page count changes only at page boundaries), tail chunks only
-        near region exhaustion, where the remaining slots lie in
-        [n, 2n). Verify ticks advance the frontier by V columns, so with
-        speculation on every steps value is walked (stride 1) and the
-        verify page counts over [0, cap - V] added."""
-        n = self.decode_chunk
-        while n & (n - 1):
-            n &= n - 1
-        chunk = n
+        """Every tick program a run can dispatch. A decode tick always
+        runs the main chunk, over the pages that cover its longest row's
+        own count plus the chunk: any count in [0, the cache's decode
+        columns], a row past its need included. A verify tick's rows
+        start their segments at counts in [0, capacity - V]. The page
+        count moves only at page boundaries, so a page-stride walk of
+        the counts (and the last) meets every value."""
+        def counts(hi: int, n: int) -> List[int]:
+            walk = list(range(0, max(hi, 0) + 1, self._page)) + [max(hi, 0)]
+            return sorted({self._num_pages(c, n) for c in walk})
 
-        def count_for(steps_done: int, n_: int) -> int:
-            return decode_attn_mod.num_pages_for(
-                self.max_prompt + steps_done + n_, self._page,
-                self._total_pages, base_pages=self._base_pages)
-
-        cap = self.decode_capacity()
-        stride = 1 if self.spec_decode else max(1, self._page)
-        pairs = {(chunk, count_for(s, chunk))
-                 for s in range(0, max(cap - chunk, 0) + 1, stride)}
-        pairs.add((chunk, count_for(max(cap - chunk, 0), chunk)))
-        while n > 1:
-            n //= 2
-            lo, hi = max(0, cap - 2 * n + 1), max(0, cap - n)
-            walk = range(lo, hi + 1) if self.spec_decode else (lo, hi)
-            pairs.update((n, count_for(s, n)) for s in walk)
-        pairs = sorted(pairs)
-        keys = [('decode', n_, p) for n_, p in pairs]
+        chunk = self._chunk_steps
+        pages = counts(self._col_cap, chunk)
+        keys = [('decode', chunk, p) for p in pages]
         keys.append(('mixed', 0, None, 0))
-        keys += [('mixed', n_, p, 0) for n_, p in pairs]
+        keys += [('mixed', chunk, p, 0) for p in pages]
         if self.spec_decode:
             v = self._spec_v
-            counts = sorted({count_for(s, v)
-                             for s in range(0, max(cap - v, 0) + 1)})
-            keys += [('verify', p) for p in counts]
-            keys += [('mixed', 0, p, v) for p in counts]
+            verify = counts(self.decode_capacity() - v, v)
+            keys += [('verify', p) for p in verify]
+            keys += [('mixed', 0, p, v) for p in verify]
         return keys
 
     def _capture(self) -> None:
@@ -886,7 +882,7 @@ class ServingEngine:
             raise RuntimeError('reset() with requests in flight')
         with self._op('reset'):
             inference.reset_cache(self.cache)
-        self._steps_done = 0
+        self._cols[:] = 0
         self.results = {}
 
     def submit(self, request: Request) -> None:
@@ -1021,16 +1017,13 @@ class ServingEngine:
                 f'a tick (rank {self.mesh.rank}): a device operation ran '
                 'outside the control channel')
 
-    def _num_pages(self, n: int) -> int:
-        """Page count for the next ``n``-step decode chunk: covers the
-        live region [0, base + steps_done + n)."""
-        live = self.max_prompt + self._steps_done + n
+    def _num_pages(self, front: int, n: int) -> int:
+        """Page count for an ``n``-column tick whose longest row has
+        ``front`` decode columns: covers [0, base + front + n)."""
+        live = self.max_prompt + front + n
         return decode_attn_mod.num_pages_for(live, self._page,
                                              self._total_pages,
                                              base_pages=self._base_pages)
-
-    def remaining_slots(self) -> int:
-        return self.decode_capacity() - self._steps_done
 
     def num_active(self) -> int:
         return sum(s is not None for s in self.slots)
@@ -1051,52 +1044,12 @@ class ServingEngine:
         return prompt_len - self.prefix.reusable_tokens(
             tokens, self.prefill_chunk, holder=holder)
 
-    def _fits(self, req: Request) -> bool:
-        """May ``req`` be admitted without breaking the finish
-        guarantee? At every tick the remaining decode region must cover
-        the worst case any occupied slot still needs: ``max_new`` left
-        plus ``decode_chunk`` steps other slots may burn per remaining
-        prefill tick. A request with no co-resident slot only needs
-        ``max_new`` (prefill-only ticks dispatch no decode steps).
-
-        A prefix-cache hit charges only the uncached suffix (the same
-        lookup runs in ``_admit`` in the same tick, and pages pinned
-        there cannot evict in between). The lookup is memoized on
-        (request IDENTITY, pool directory version): ids may be reused
-        with other tokens, and the answer only changes when a page is
-        published or evicted."""
-        remaining = self.remaining_slots()
-        occupied = [s for s in self.slots if s is not None]
-        if not occupied:
-            return req.max_new <= remaining
-        if self.prefix is None or self._warming:
-            suffix = len(req.tokens)
-        else:
-            memo = self._fits_memo
-            if (memo is not None and memo[0] is req and
-                    memo[1] == self.prefix.version):
-                suffix = memo[2]
-            else:
-                suffix = self._suffix_len(len(req.tokens), req.tokens,
-                                          holder=req)
-                self._fits_memo = (req, self.prefix.version, suffix)
-        charge = (req.max_new + self._prefill_ticks(suffix) *
-                  self.decode_chunk)
-        if charge > remaining:
-            return False
-        for s in occupied:
-            left = s.max_new - len(s.generated)
-            if s.phase == 'prefill':
-                left += (self._prefill_ticks(s.prompt_len - s.prefill_pos)
-                         * self.decode_chunk)
-            if left > remaining:
-                return False
-        return True
-
     def _admission_charge(self, req: Request) -> int:
-        """The request's admission cost in tick-tokens, _fits' cost
-        model: max_new plus decode_chunk per prefill tick of the
-        uncached suffix. The currency of the token buckets and DRR."""
+        """The request's admission cost in tick-tokens: max_new plus
+        decode_chunk per prefill tick of the uncached suffix (a prefix
+        hit charges only the suffix). The currency of the token buckets
+        and DRR, and the worst case a shared decode region would have
+        had to hold (``_past_frontier``)."""
         if self.prefix is None or self._warming:
             suffix = len(req.tokens)
         else:
@@ -1188,19 +1141,18 @@ class ServingEngine:
         threshold = self._qos_cfg['preempt_after_s']
         if threshold <= 0:
             return
-        best = None            # (rank, request)
+        rank = None            # the best-ranked queued request's
         for i in range(len(self.queue)):
             try:
                 r = self.queue[i]
             except IndexError:
                 break
-            rank = qos_lib.class_rank(r.priority_class)
-            if best is None or rank < best[0]:
-                best = (rank, r)
-        if best is None:
+            r_rank = qos_lib.class_rank(r.priority_class)
+            if rank is None or r_rank < rank:
+                rank = r_rank
+        if rank is None:
             self._qos_blocked_since = None
             return
-        rank, head = best
         victim = None          # (victim rank, seq, slot state)
         for s in self.slots:
             if s is None:
@@ -1212,8 +1164,7 @@ class ServingEngine:
             if victim is None or cand[:2] > victim[:2]:
                 victim = cand
         blocked = (victim is not None and
-                   (not any(s is None for s in self.slots) or
-                    not self._fits(head)))
+                   all(s is not None for s in self.slots))
         if not blocked:
             self._qos_blocked_since = None
             return
@@ -1255,18 +1206,30 @@ class ServingEngine:
                 tokens=toks, max_new=max(1, max_new),
                 tenant=tenant, priority_class=cls))
 
+    def _past_frontier(self, req: Request) -> bool:
+        """Would a decode region shared by every slot, compacted to its
+        longest live occupant, have refused ``req``? Its worst case
+        (``_admission_charge``) past the columns such a region has left
+        beside the occupant with the most decode columns."""
+        cols = [self._cols[i] for i, s in enumerate(self.slots)
+                if s is not None]
+        return bool(cols) and (self._admission_charge(req) >
+                               self.decode_capacity() - max(cols))
+
     def _admit(self, phase: Optional[trace_lib.Span] = None) -> None:
         """Move queued requests into free slots; prefilling slots are
         capped at the budget's row count so every one of them is
-        scheduled every tick. Strict FIFO until QoS latches, then the
-        DRR pick of _qos_select; either way only which request is
-        popped changes, never a tick program. ``phase`` (the tick's
-        engine.tick.admit span, when traced) gets what admission did
-        and why it stopped."""
+        scheduled every tick. Each slot owns its decode columns, so a
+        free slot is all a request needs. Strict FIFO until QoS
+        latches, then the DRR pick of _qos_select; either way only
+        which request is popped changes, never a tick program.
+        ``phase`` (the tick's engine.tick.admit span, when traced) gets
+        what admission did, why it stopped, and how many admissions
+        went ``past_frontier``."""
         free = [i for i, s in enumerate(self.slots) if s is None]
         n_prefilling = sum(1 for s in self.slots
                            if s is not None and s.phase == 'prefill')
-        admitted = resets = 0
+        admitted = past = 0
         stop = None
         qos_on = self._qos_active
         while self.queue and free and n_prefilling < self._prefill_rows:
@@ -1278,19 +1241,8 @@ class ServingEngine:
             else:
                 idx = 0
             req = self.queue[idx]
-            if not self._fits(req):
-                if (self.num_active() == 0 and not admitted and
-                        self._pending is None and self._steps_done):
-                    # Region exhausted with nothing running: fresh
-                    # cache (restored in place), then re-check.
-                    with self._op('reset'):
-                        inference.reset_cache(self.cache)
-                    self._steps_done = 0
-                    _M_RESETS.inc()
-                    resets += 1
-                    continue
-                stop = 'region'
-                break  # wait for running requests to drain
+            if phase is not None and self._past_frontier(req):
+                past += 1
             if qos_on:
                 # Spend only on admission: the charge clears the
                 # stream's deficit and (with rate limiting on and a
@@ -1305,6 +1257,7 @@ class ServingEngine:
             # Slot assignment before the pop: the request is never in
             # neither container.
             slot_idx = free.pop(0)
+            self._cols[slot_idx] = 0
             self._epoch += 1
             self._seq += 1
             self.slots[slot_idx] = _SlotState(
@@ -1354,8 +1307,9 @@ class ServingEngine:
             if stop is None:
                 stop = ('queue_empty' if not self.queue else
                         'no_slot' if not free else 'prefill_rows')
+            self.admits_past_frontier += past
             phase.set_attr(admitted=admitted, admit_stop=stop,
-                           resets=resets, queued=len(self.queue),
+                           past_frontier=past, queued=len(self.queue),
                            free_slots=len(free))
 
     def _retire_prefix(self, state: _SlotState, slot_idx: int) -> None:
@@ -1620,24 +1574,17 @@ class ServingEngine:
         return eligible, found
 
     def _spec_may_run(self) -> bool:
-        """May a verify segment run without breaking the finish
-        guarantee? It consumes V shared columns while its worst case
-        (all rejected) advances each decode row by one token, so the
-        region left after it must still cover every occupant's
-        pessimistic remaining need."""
-        after = self.remaining_slots() - self._spec_v
-        if after < 0:
-            return False
-        for s in self.slots:
-            if s is None:
+        """May a verify segment run without stranding a row? Each decode
+        row writes V columns from its own frontier while its worst case
+        (all rejected) advances it by one token, so the columns it has
+        left after the segment must still cover the tokens it may still
+        need (counts that lag the in-flight tick only over-estimate
+        them). Prefilling rows write no kept column in it."""
+        after = self.decode_capacity() - self._spec_v
+        for i, s in enumerate(self.slots):
+            if s is None or s.phase != 'decode':
                 continue
-            left = s.max_new - len(s.generated)
-            if s.phase == 'prefill':
-                left += (self._prefill_ticks(s.prompt_len - s.prefill_pos)
-                         * self.decode_chunk)
-            else:
-                left -= 1           # every decode row advances >= 1
-            if left > after:
+            if s.max_new - len(s.generated) - 1 > after - self._cols[i]:
                 return False
         return True
 
@@ -1949,34 +1896,15 @@ class ServingEngine:
                          if s is not None and s.phase == 'decode' and
                          s.draft]
         run_spec = bool(spec_rows) and self._spec_may_run()
-        # Decode chunk: bounded by the remaining region (admission
-        # guarantees every active request fits) and folded to a power
-        # of two, as in the reference.
-        n = 0
-        if any_active and not run_spec:
-            n = min(self.decode_chunk, self.remaining_slots())
-            if n < 1:
-                # Slots free one tick after their final chunk, so a
-                # request whose max_new consumed the region exactly is
-                # still occupied here; processing the pending tick
-                # frees it.
-                if self._pending is None and not prefilling:
-                    raise RuntimeError(
-                        'capacity accounting violated: region exhausted '
-                        'with active slots and no tick in flight')
-                n = 0
-            while n & (n - 1):
-                n &= n - 1
-        if not prefilling and n == 0 and not run_spec:
-            return None
+        # Every decode tick runs the whole chunk: a row past its need
+        # writes columns no kept token reads (held at the cache's end).
+        n = self._chunk_steps if any_active and not run_spec else 0
         spec = self._spec_v if run_spec else 0
-        if spec and self.remaining_slots() < spec:
-            # The device reads the segment start from the cache; the
-            # host mirror of steps is where the bound is checked.
-            raise RuntimeError(
-                f'the verify segment at {self.max_prompt + self._steps_done}'
-                f' runs past the cache ({self.max_seq} slots)')
-        num_pages = self._num_pages(spec or n) if spec or n else None
+        num_pages = None
+        if spec or n:
+            front = max(self._cols[i] for i, a in enumerate(active_list)
+                        if a)
+            num_pages = self._num_pages(front, spec or n)
         if not prefilling:
             key = (('verify', num_pages) if spec else
                    ('decode', n, num_pages))
@@ -2080,7 +2008,6 @@ class ServingEngine:
                 # The first token is already in the device token vector;
                 # the slot decodes from the next tick on.
                 st.phase = 'decode'
-                st.decode_from = self._steps_done + (spec or n)
                 if ts is not None:
                     ps = ts.pop('prefill', None)
                     if ps is not None:
@@ -2102,7 +2029,10 @@ class ServingEngine:
         if timer is not None:
             device = (self._device_span(key, spec or n, snapshot,
                                         chunk_meta), timer)
-        self._steps_done += spec or n
+        if spec or n:
+            act = np.asarray(active_list)
+            self._cols[act] = np.minimum(self._cols[act] + (spec or n),
+                                         self._col_cap)
         return {'out': out, 'event': self._out_events[ring], 'n': n,
                 'spec': spec, 'snapshot': snapshot, 'chunks': chunk_meta,
                 'key': key, 'first': first, 'device': device}
@@ -2110,17 +2040,16 @@ class ServingEngine:
     def _device_span(self, key: tuple, n: int, snapshot: List[tuple],
                      chunks: List[Dict[str, Any]]) -> trace_lib.Span:
         """The engine.tick.device span of a tick just dispatched (called
-        before the shared region's step count moves): its kind, decode
-        steps (or verify width) ``n``, live decode ``rows``, the ``keys``
-        those rows attend over the n steps (step j of a row with c keys
-        before it attends c + j + 1), and its prefill tokens, chunks and
+        before the rows' column counts move): its kind, decode steps (or
+        verify width) ``n``, live decode ``rows``, the ``keys`` those
+        rows attend over the n steps (step j of a row with c keys before
+        it attends c + j + 1), and its prefill tokens, chunks and
         query-key pairs. It ends with ``device_ms`` when the tick is
         processed."""
         keys = 0
         if n:
             for i, _ in snapshot:
-                st = self.slots[i]
-                c = st.prompt_len + self._steps_done - st.decode_from
+                c = self.slots[i].prompt_len + int(self._cols[i])
                 keys += n * c + n * (n + 1) // 2
         pairs = sum(((m['start'] + m['n']) * (m['start'] + m['n'] + 1) -
                      m['start'] * (m['start'] + 1)) // 2 for m in chunks)

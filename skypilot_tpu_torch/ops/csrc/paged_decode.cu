@@ -23,9 +23,10 @@
 // keys in column order (split_kv's live map), so the reduction order
 // follows the row's own key sequence wherever the schedule put it; the
 // caller fixes `split_tiles` from the cache's shape (the blocks cover
-// the SMs a few times over a full cache: at B 8 x n_kv 8 one block per
-// (kv head, row) left half of the 132 SMs idle) and launches enough
-// splits to cover the dispatched columns. The rep query heads of a GQA group are
+// the SMs a few times over a full cache, in runs of at most 16 tiles:
+// at B 8 x n_kv 8 one block per (kv head, row) left half of the 132 SMs
+// idle, and a serving batch's few live rows would leave most of them
+// idle) and launches enough splits to cover the dispatched columns. The rep query heads of a GQA group are
 // padded to one 64-row warpgroup tile, so each K/V tile is read from
 // device memory once and both products run on wgmma (the padding is
 // free: 64 operations per byte is still under the ridge), the query

@@ -4,10 +4,10 @@
 // _verify_fwd_kernel (driven by _verify_fwd_pallas). Each row b of a
 // decode batch feeds a V-token verify segment (its current token plus
 // up to V-1 drafted candidates) whose K/V are already written at the
-// shared frontier columns [seg, seg + V) of the row's cache
+// row's own frontier columns [seg[b], seg[b] + V) of its cache
 // [B, S, n_kv, D] (bf16/f32 like q, or int8 with per-vector bf16
 // scales [B, S, n_kv]). Query i of the segment attends column col when
-//     valid[b, col]  or  seg <= col <= seg + i
+//     valid[b, col]  or  seg[b] <= col <= seg[b] + i
 // (the live cache, which continuous batching leaves with holes, plus
 // the segment causally, self-inclusive). The TPU version sent int8
 // caches to its einsum reference; here the kernels take them, so a CUDA
@@ -18,18 +18,18 @@
 // each live K/V column once (~13 MB in bf16, ~4 us at 3.35 TB/s) and
 // does 4 * rep * V = 80 operations per K/V element read, far below the
 // ~295 per byte the card needs to be compute-bound. Only what must be
-// read is read: the column loop stops at `end` = min(n_cols, seg + V)
+// read is read: the column loop stops at `end` = min(n_cols, seg[b] + V)
 // (columns past the segment, and past the region the caller dispatched,
 // are never read), and a column no query of the row may attend
 // (dmask-false below the segment) is never loaded: zeros stand in, so
 // NaN garbage left by recycled rows and rejected candidates cannot
 // reach the accumulator, and masked probabilities are zeroed
 // explicitly. A row whose dmask is all false still sees its own
-// segment. The segment start `seg` is read from device memory (the
-// engine's write frontier base + steps), never passed by the host, so
-// a launch captured in a CUDA graph follows it from replay to replay;
-// the launch geometry depends only on the static n_cols, and each
-// block works out `end` itself. Block row r is segment position r / rep
+// segment. The segment starts `seg` [B] are read from device memory
+// (each row's own write frontier base + steps[b]), never passed by the
+// host, so a launch captured in a CUDA graph follows them from replay to
+// replay; the launch geometry depends only on the static n_cols, and
+// each block works out its row's `end` itself. Block row r is segment position r / rep
 // of query head kh * rep + r % rep. The type of q picks one of two
 // kernels:
 //
@@ -39,9 +39,9 @@
 // the live keys below `end` in column order (split_kv's live map: the
 // reduction order follows the row's own keys, wherever the schedule put
 // them); the caller fixes `split_tiles` from the cache's shape (the blocks
-// cover the SMs a few times over a full cache: one block per (kv head,
-// row) left half of the 132 SMs idle) and launches enough splits to
-// cover n_cols. The rep * V rows of a GQA
+// cover the SMs a few times over a full cache, in runs of at most 16
+// tiles: one block per (kv head, row) left half of the 132 SMs idle)
+// and launches enough splits to cover n_cols. The rep * V rows of a GQA
 // group are padded to 64-row warpgroup tiles, one or two warpgroups per
 // block sharing each K/V tile (128 rows; a wider segment takes more row
 // chunks, each reading the tiles again), and both products run on
@@ -164,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(
     const __nv_bfloat16* __restrict__ k_scale,  // [B, S, n_kv] or null
     const __nv_bfloat16* __restrict__ v_scale,  // [B, S, n_kv] or null
     const bool* __restrict__ valid,             // [B, S]
-    const int* __restrict__ seg_ptr,            // segment start
+    const int* __restrict__ seg_ptr,            // [B] segment starts
     T* __restrict__ out,                        // [B, V, H, D]
     int V, int S, int H, int n_kv, int D, int n_cols, float scale) {
   extern __shared__ float4 smem4[];
@@ -179,7 +179,7 @@ __global__ void __launch_bounds__(kThreads) verify_attention_kernel(
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int seg = *seg_ptr;
+  const int seg = seg_ptr[b];
   const int end = min(n_cols, seg + V);
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -395,7 +395,7 @@ __global__ void __launch_bounds__(split_kv::kMaxWg * split_kv::kWg)
         const __nv_bfloat16* __restrict__ k_scale,  // [B, S, n_kv] (int8)
         const __nv_bfloat16* __restrict__ v_scale,  // [B, S, n_kv] (int8)
         const bool* __restrict__ valid,             // [B, S]
-        const int* __restrict__ seg_ptr,            // segment start
+        const int* __restrict__ seg_ptr,            // [B] segment starts
         __nv_bfloat16* __restrict__ out,            // [B, V, H, D]
         float* __restrict__ part_ml, float* __restrict__ part_acc,
         int* __restrict__ counters, int V, int S, int H, int n_kv,
@@ -416,7 +416,7 @@ __global__ void __launch_bounds__(split_kv::kMaxWg * split_kv::kWg)
   // The split count comes from the static n_cols; the splits take the
   // live keys below `end` (columns past the segment hold nothing any
   // query sees), so a split past them writes an empty partial.
-  const int seg = *seg_ptr;
+  const int seg = seg_ptr[b];
   const int end = min(n_cols, seg + V);
   const float scale2 = scale * flash_tc::kLog2e;  // scores in log2 units
   const bool* vrow = valid + (size_t)b * S;
@@ -486,8 +486,9 @@ int launch_tc(const void* q, const void* k, const void* v,
 // rows_per_block * 2] and [.. * rows_per_block * D] and counters int32
 // [B * n_kv * chunks], zero at launch, chunks = ceil(rep * V / rows_per_block)) for q and
 // out, and the cache unless kv_int8, when k_scale/v_scale must be
-// given. The segment occupies columns [*seg, *seg + V), seg an int32
-// in device memory that the caller keeps within [0, n_cols - V];
+// given. Row b's segment occupies columns [seg[b], seg[b] + V), seg
+// [B] int32 in device memory that the caller keeps within
+// [0, n_cols - V];
 // n_cols (<= S) bounds the columns read, and sets the launch geometry.
 // head_dim must be a multiple of 16 up to 128. Returns
 // cudaGetLastError() after the launch.

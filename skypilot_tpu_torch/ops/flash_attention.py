@@ -450,16 +450,17 @@ def chunk_prefill_attention(q, k, v, q_offset, k_scale=None, v_scale=None
 
 def verify_attention_reference(q, k, v, valid, seg_start, k_scale=None,
                                v_scale=None):
-    """Plain version of the verify kernel: query i of the V-token
+    """Plain version of the verify kernel: query i of row b's V-token
     segment attends every dmask-true column plus the segment columns
-    seg_start .. seg_start + i (self-inclusive); ``seg_start`` is an
-    int32 tensor of one element on q's device (or an integer). int8
-    caches take their per-vector scales as ``chunk_attention_reference``
-    does."""
+    seg_start[b] .. seg_start[b] + i (self-inclusive); ``seg_start`` is
+    an int32 tensor on q's device, [B] (each row's own start) or of one
+    element (one start for every row), or an integer. int8 caches take
+    their per-vector scales as ``chunk_attention_reference`` does."""
     vq, s = q.shape[1], k.shape[1]
     col = torch.arange(s, device=q.device)[None, None, :]
     qi = torch.arange(vq, device=q.device)[None, :, None]
-    seg = (col >= seg_start) & (col <= seg_start + qi)
+    start = torch.as_tensor(seg_start, device=q.device).reshape(-1, 1, 1)
+    seg = (col >= start) & (col <= start + qi)
     allow = valid[:, None, :] | seg                          # [B, V, S]
     return _masked_attention_reference(q, k, v, allow, k_scale, v_scale)
 
@@ -474,16 +475,19 @@ def _verify_attention_cuda(q, k, v, valid, seg, k_scale, v_scale, n_cols):
         raise ValueError(f'unsupported shapes q {tuple(q.shape)} valid '
                          f'{tuple(valid.shape)} (head_dim a multiple of 16, '
                          'bool valid [B, S])')
-    if seg.numel() != 1 or seg.dtype != torch.int32 or \
+    if seg.numel() not in (1, b) or seg.dtype != torch.int32 or \
             seg.device != q.device:
-        raise ValueError('seg_start must be one int32 on q\'s device')
+        raise ValueError('seg_start must be one int32, or [B], on q\'s '
+                         'device')
+    # The kernels read each row's own start.
+    seg = seg.reshape(-1).expand(b).contiguous()
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _build.function(VERIFY_KERNEL, 'verify_attention',
                          [P] * 11 + [I] * 10 + [ctypes.c_float, I, I, P])
     out = torch.empty_like(q)
     stream = _stream(q)
-    # The segment start lives on the device, so the geometry comes from
-    # the static n_cols; the kernel stops at min(n_cols, seg + V).
+    # The segment starts live on the device, so the geometry comes from
+    # the static n_cols; a row's blocks stop at min(n_cols, seg[b] + V).
     rows = h // n_kv * vq
     rb = split_kv.rows_per_block(rows)
     n_split, split_tiles, ml, acc, counters = 1, 1, None, None, None
@@ -514,14 +518,16 @@ def verify_attention(q, k, v, valid, seg_start, k_scale=None, v_scale=None,
 
     q [B, V, H, D] — the segment's queries (current token + drafted
     candidates); k/v [B, S, H_kv, D] — each row's cache with the
-    segment's K/V already written at columns [seg_start, seg_start + V)
-    (bf16/f32, or int8 with k_scale/v_scale [B, S, H_kv]); valid [B, S]
-    bool — the cache dmask, False at and past seg_start; seg_start — the
-    shared write frontier, one int32 on q's device (a 0-dim or [1]
-    tensor, read by the kernel, never on the host, so a captured launch
-    follows it), or a Python int, copied to the device here and checked.
-    Only the first ``n_cols`` columns (default S) are read: they must
-    hold the whole segment (for a tensor start, the caller's check).
+    segment's K/V already written at columns [seg_start[b], seg_start[b]
+    + V) of row b (bf16/f32, or int8 with k_scale/v_scale [B, S, H_kv]);
+    valid [B, S] bool — the cache dmask, False at and past each row's
+    start; seg_start — each row's own write frontier, an int32 [B]
+    tensor on q's device, or one start shared by every row (a 0-dim or
+    [1] tensor, or a Python int, copied to the device here and
+    checked). A tensor is read by the kernel, never on the host, so a
+    captured launch follows it. Only the first ``n_cols`` columns
+    (default S) are read: they must hold every row's whole segment (for
+    a tensor start, the caller's check).
     Returns [B, V, H, D]. CUDA tensors run the hand-written kernel
     (int8 caches included, any H / H_kv x V query rows): a bf16 q the
     split-KV tensor-core one (head_dim in ``FLASH_HEAD_DIMS``, else

@@ -30,6 +30,7 @@ import torch
 TILE = 64                 # cache columns per tile (split_kv::kBk)
 MAX_ROWS_PER_BLOCK = 128  # query rows of a K3 block (split_kv::kMaxRows)
 MAX_SPLIT = 64            # splits the merge holds (split_kv::kMaxSplit)
+RUN_TILES = 16            # live-key tiles a block takes at most
 
 MIN_COUNTERS = 1024       # counters allocated at least (slots per launch)
 
@@ -42,9 +43,17 @@ def tiles_per_split(slots: int, s_tiles: int, n_sm: int) -> int:
     ``slots`` (row, kv head) pairs over a cache of ``s_tiles`` 64-column
     tiles. A full cache is cut into as many splits as keep the grid
     within four blocks per SM (two waves: the kernels' shared memory
-    holds two blocks on an SM), no more than one per tile or MAX_SPLIT,
-    and at least one; a shorter live run takes fewer."""
-    n = max(1, min(4 * n_sm // max(1, slots), s_tiles, MAX_SPLIT))
+    holds two blocks on an SM), and into runs of at most RUN_TILES tiles
+    (1,024 keys) besides; no more than one split per tile or MAX_SPLIT,
+    and at least one; a shorter live run takes fewer. The runs' cap is
+    for a serving batch, whose rows hold far fewer keys than the cache
+    and are mostly idle: a few live rows then fill few SMs, and their
+    longest walk, not the grid's size, sets the launch's time (K1 at
+    the Mistral-7B chat engine's decode shape, 16 of 64 rows live: 82
+    us a launch against 178 with one run a row; all 64 live: 234
+    against 266)."""
+    n = max(1, min(max(4 * n_sm // max(1, slots), -(-s_tiles // RUN_TILES)),
+                   s_tiles, MAX_SPLIT))
     return max(1, -(-s_tiles // n))
 
 

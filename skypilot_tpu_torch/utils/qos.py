@@ -169,9 +169,9 @@ class DeficitRoundRobin:
     the active streams earn ``quantum * weight[class]`` deficit; a
     stream whose head's charge fits its deficit may admit it (the
     charge is then deducted). The scheduler only ORDERS — the engine
-    still runs its capacity check (``_fits``) and the token buckets
-    independently, and a stream skipped for capacity keeps its
-    deficit for the next tick.
+    still admits only into a free slot under its prefill-row cap, and
+    runs the token buckets independently; a stream left waiting keeps
+    its deficit for the next tick.
 
     State is keyed by ``(tenant, class)`` so one tenant submitting
     both interactive and bulk work competes as two streams, each at

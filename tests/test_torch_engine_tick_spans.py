@@ -2,7 +2,8 @@
 ticks"): under ``SKYTPU_TRACE_DIR`` every working ``step()`` is one
 ``engine.tick`` trace with its phases in order, every dispatched tick
 one ``engine.tick.device`` span whose counts equal what the benchmark's
-tick log records for the same run, admission says why it stopped, and
+tick log records for the same run, admission says why it stopped and
+counts the admissions a shared decode region would have refused, and
 the phases are ``torch.profiler`` ranges while a profiler records. With
 tracing off the engine spools nothing and opens no range."""
 import json
@@ -134,21 +135,33 @@ def _admits(spans):
     return [s['attrs'] for s in spans if s['name'] == 'engine.tick.admit']
 
 
-def test_admission_names_region_and_reset(model, monkeypatch, tmp_path):
-    """A long answer holds the region: the next request finds a free
-    slot that _fits refuses ('region') until the region drains and
-    resets."""
+def test_admission_past_a_long_answer(model, monkeypatch, tmp_path):
+    """A long answer no longer holds the others back: the third request
+    takes the slot the short one frees while the long one still runs
+    (each slot owns its decode columns), and past_frontier counts it,
+    since a region shared by both slots would have refused it (its 28
+    tick-tokens against the 32 columns less the long row's)."""
     cfg = model[0]
     eng = _engine(model)
     monkeypatch.setenv('SKYTPU_TRACE_DIR', str(tmp_path))
     _drive(eng, _requests(cfg, [(6, 28), (4, 4), (5, 24)]))
-    admits = _admits(export.read_spans(str(tmp_path)))
-    region = [a for a in admits if a['admit_stop'] == 'region']
-    assert region and all(a['queued'] >= 1 and a['free_slots'] >= 1
-                          for a in region)
-    assert sum(a['resets'] for a in admits) == 1
+    spans = export.read_spans(str(tmp_path))
+    admits = _admits(spans)
+    assert all(a['admit_stop'] in ('queue_empty', 'no_slot',
+                                   'prefill_rows') for a in admits)
+    assert all('resets' not in a for a in admits)
     assert sum(a['admitted'] for a in admits) == 3
     assert admits[-1]['admit_stop'] == 'queue_empty'
+    past = sum(a['past_frontier'] for a in admits)
+    assert past == eng.admits_past_frontier == 1
+    # Request 2's prefill starts before request 0 has finished.
+    req = {s['span_id']: s['attrs']['request_id'] for s in spans
+           if s['name'] == 'engine.request'}
+    done0 = next(s['end'] for s in spans if s['name'] == 'engine.request'
+                 and s['attrs']['request_id'] == '0')
+    start2 = next(s['start'] for s in spans if s['name'] == 'engine.prefill'
+                  and req[s['parent_id']] == '2')
+    assert start2 < done0
 
 
 def test_admission_names_no_slot(model, monkeypatch, tmp_path):
@@ -157,8 +170,8 @@ def test_admission_names_no_slot(model, monkeypatch, tmp_path):
     monkeypatch.setenv('SKYTPU_TRACE_DIR', str(tmp_path))
     _drive(eng, _requests(cfg, [(5, 6), (5, 6), (5, 6)]))
     first = _admits(export.read_spans(str(tmp_path)))[0]
-    assert first == {'admitted': 2, 'admit_stop': 'no_slot', 'resets': 0,
-                     'queued': 1, 'free_slots': 0}
+    assert first == {'admitted': 2, 'admit_stop': 'no_slot',
+                     'past_frontier': 0, 'queued': 1, 'free_slots': 0}
 
 
 def test_prefill_rows_stop(model, monkeypatch, tmp_path):

@@ -88,7 +88,7 @@ def test_device_ms_is_a_synchronised_replay(traced):
     key_s = max(times, key=lambda k: len(times[k]))
     key = next(k for k in eng._graphs if repr(k) == key_s)
     device_ms = statistics.median(times[key_s])
-    # A fresh region, so the replays below write inside the cache.
+    # Every row's count back at 0, as the run found them.
     eng.reset()
     walls = []
     for _ in range(eng.decode_capacity() // key[1]):

@@ -4,10 +4,17 @@
 dead row repeating a live row's slot) and ``decode_step`` (inactive
 rows, page-bounded reads) leave the same cache — float fields within
 atol 1e-5, int8 payloads and scales bitwise, dmask and lengths equal —
-and the same logits within atol 1e-4. Within the port: chunked
-prefill equals one whole-prompt chunk at plen = k*chunk +/- 1, a
-recycled slot forgets its previous occupant, ``_sample`` keeps top_k
-ties, and the cache-free ``reference_generate`` gives JAX's tokens.
+and the same logits within atol 1e-4; each row's own decode column
+count equals JAX's shared ``steps`` while it moves in lockstep, and an
+idle row keeps its count (its idle K/V land at its own frontier, so it
+is compared on the columns it may read). Within the port: rows at
+different own frontiers equal each row decoded alone, a row past the
+cache's decode columns writes nothing past ``max_seq`` and nothing of
+another row, chunked prefill equals one whole-prompt chunk at plen =
+k*chunk +/- 1, a recycled slot forgets its previous occupant (its
+count back at 0), an idle row reads no cache column, ``_sample``
+keeps top_k ties, and the cache-free
+``reference_generate`` gives JAX's tokens.
 The monolithic ``prefill`` (right-padded prompts through the flash
 path, f32 and int8 caches) leaves JAX's cache — int8 payloads and
 scales bitwise — and logits within 1e-4, and ``generate`` gives JAX's
@@ -56,27 +63,40 @@ def _jax_cache(cfg, quant):
     return cache
 
 
-def _assert_caches_equal(jc, tc):
+def _assert_caches_equal(jc, tc, counts=None):
+    """The port's cache equals JAX's. ``counts``: each row's expected
+    own decode column count (default: JAX's shared ``steps``, every
+    row in lockstep). A row whose count is not JAX's ``steps`` sat out
+    decode steps: it wrote its idle K/V at its own frontier where JAX
+    wrote them at the shared column, so it is compared on its prompt
+    region and the columns it may read."""
     assert set(jc) == set(tc)
+    steps = int(jc['steps'])
+    counts = np.full(tc['length'].shape, steps) if counts is None else \
+        np.asarray(counts)
+    dmask = np.asarray(jc['dmask'])
+    cols = np.arange(dmask.shape[1])[None, :]
+    keep = (counts == steps)[:, None] | dmask | (cols < tc['base'])
     for f in ('k', 'v', 'k_scale', 'v_scale'):
         if f not in jc:
             continue
-        j = np.asarray(jc[f])
+        j = np.asarray(jc[f])[:, keep]
         t = tc[f]
         if t.dtype == torch.bfloat16:        # scales: bitwise
-            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
-                                          j.view(np.int16), err_msg=f)
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy()[:, keep], j.view(np.int16),
+                err_msg=f)
         elif t.dtype == torch.int8:          # payloads: bitwise
-            np.testing.assert_array_equal(t.numpy(), j, err_msg=f)
+            np.testing.assert_array_equal(t.numpy()[:, keep], j, err_msg=f)
         else:
-            np.testing.assert_allclose(t.numpy(), j, atol=ATOL_CACHE,
-                                       rtol=0, err_msg=f)
-    np.testing.assert_array_equal(tc['dmask'].numpy(),
-                                  np.asarray(jc['dmask']))
+            np.testing.assert_allclose(t.numpy()[:, keep], j,
+                                       atol=ATOL_CACHE, rtol=0, err_msg=f)
+    np.testing.assert_array_equal(tc['dmask'].numpy(), dmask)
     np.testing.assert_array_equal(tc['length'].numpy(),
                                   np.asarray(jc['length']))
     assert tc['base'] == int(jc['base'])
-    assert tc['steps'] == int(jc['steps'])
+    assert tc['steps'].dtype == torch.int32
+    np.testing.assert_array_equal(tc['steps'].numpy(), counts)
 
 
 def _chunk_args(rows, c, vocab, seed):
@@ -143,8 +163,7 @@ def test_prefill_chunk_and_decode_step_match_jax(models, quant):
     for step, toks in enumerate(([5, 9, 17], [33, 2, 250])):
         jc, tc = _both_decode(models, jc, tc, np.asarray(toks, np.int32),
                               active, num_pages=MAX_PROMPT // PAGE + 1)
-        _assert_caches_equal(jc, tc)
-        assert tc['steps'] == step + 1
+        _assert_caches_equal(jc, tc, np.where(active, step + 1, 0))
 
 
 @pytest.mark.parametrize('plen', [7, 8, 9, 15, 16, 17, 31], ids=str)
@@ -204,9 +223,132 @@ def test_recycled_slot_forgets_its_previous_occupant(models):
     fresh_logits, _ = run([(new, 5)], n_old_steps=0)
     np.testing.assert_allclose(recycled_logits.numpy(),
                                fresh_logits.numpy(), atol=ATOL_CACHE, rtol=0)
-    # Only the new prompt and the decode slot just written are readable.
+    # Only the new prompt and the decode slot just written are readable:
+    # the new occupant's count started again at 0.
     readable = np.nonzero(cache['dmask'][0].numpy())[0].tolist()
-    assert readable == [0, 1, 2, 3, 4, MAX_PROMPT + 3]
+    assert readable == [0, 1, 2, 3, 4, MAX_PROMPT]
+    assert cache['steps'].tolist() == [1]
+
+
+def _prefill_rows(tparams, tcfg, cache, prompts):
+    """Each row's whole prompt as one chunk (one row per call)."""
+    for row, p in enumerate(prompts):
+        toks = np.zeros((1, MAX_PROMPT), np.int32)
+        toks[0, :len(p)] = p
+        tinf.prefill_chunk(tparams, cache, torch.from_numpy(toks), [0],
+                           [len(p)], [True], [row], tcfg,
+                           prompt_base=MAX_PROMPT)
+
+
+@pytest.mark.parametrize('quant', [False, True], ids=['f32kv', 'int8kv'])
+def test_rows_at_their_own_frontiers_equal_each_row_alone(models, quant):
+    """Rows that sat out different decode steps write at their own
+    frontiers: each row's logits, live K/V columns and count equal the
+    same row decoded alone in a one-row cache (the plain per-row
+    reference), and no row reads or writes another's columns."""
+    _, _, tcfg, tparams = models
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).tolist()
+               for n in (12, 5, 9)]
+    # Row 0 decodes alone for 3 steps, row 2 joins for 2 more, then all.
+    schedule = [[1, 0, 0]] * 3 + [[1, 0, 1]] * 2 + [[1, 1, 1]] * 4
+    feeds = rng.integers(0, tcfg.vocab_size, (len(schedule), B))
+    cache = tinf.make_cache(tcfg, B, MAX_SEQ, base=MAX_PROMPT,
+                            kv_quant=quant, device='cpu')
+    _prefill_rows(tparams, tcfg, cache, prompts)
+    got = [[] for _ in range(B)]
+    for act, toks in zip(schedule, feeds):
+        logits, _ = tinf.decode_step(
+            tparams, cache, torch.from_numpy(toks.astype(np.int32)), tcfg,
+            active=torch.tensor(act, dtype=torch.bool), page=PAGE,
+            num_pages=MAX_SEQ // PAGE)
+        for row in range(B):
+            if act[row]:
+                got[row].append(logits[row].numpy())
+    assert cache['steps'].tolist() == [9, 4, 6]
+    for row in range(B):
+        alone = tinf.make_cache(tcfg, 1, MAX_SEQ, base=MAX_PROMPT,
+                                kv_quant=quant, device='cpu')
+        _prefill_rows(tparams, tcfg, alone, [prompts[row]])
+        want = []
+        for act, toks in zip(schedule, feeds):
+            if act[row]:
+                lg, _ = tinf.decode_step(
+                    tparams, alone, torch.tensor([int(toks[row])],
+                                                 dtype=torch.int32),
+                    tcfg, page=PAGE)
+                want.append(lg[0].numpy())
+        np.testing.assert_allclose(np.stack(got[row]), np.stack(want),
+                                   atol=ATOL_LOGITS, rtol=0)
+        assert int(alone['steps'][0]) == int(cache['steps'][row])
+        np.testing.assert_array_equal(cache['dmask'][row].numpy(),
+                                      alone['dmask'][0].numpy())
+        live = alone['dmask'][0].numpy()
+        for f in ('k', 'v', 'k_scale', 'v_scale'):
+            if f not in cache:
+                continue
+            a = cache[f][:, row].float().numpy()[:, live]
+            b = alone[f][:, 0].float().numpy()[:, live]
+            np.testing.assert_allclose(a, b, atol=ATOL_CACHE, rtol=0,
+                                       err_msg=f)
+
+
+@pytest.mark.parametrize('impl', ['paged', 'lax'])
+def test_an_idle_row_reads_no_cache_column(models, impl):
+    """An idle row's logits attend to its own K/V alone, whatever its
+    cache holds (NaN planted in its live columns here): the same logits
+    as the row with an empty cache; the active rows' are untouched by
+    it."""
+    _, _, tcfg, tparams = models
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, tcfg.vocab_size, n).tolist()
+               for n in (6, 11, 4)]
+    toks = torch.tensor([5, 9, 17], dtype=torch.int32)
+    act = torch.tensor([True, False, True])
+    runs = []
+    for poison in (False, True):
+        cache = tinf.make_cache(tcfg, B, MAX_SEQ, base=MAX_PROMPT,
+                                device='cpu')
+        _prefill_rows(tparams, tcfg, cache, prompts)
+        if poison:
+            for f in ('k', 'v'):
+                cache[f][:, 1, :11] = float('nan')
+        runs.append(tinf.decode_step(tparams, cache, toks, tcfg, active=act,
+                                     attn_impl=impl, page=PAGE,
+                                     num_pages=MAX_SEQ // PAGE)[0])
+    empty = tinf.make_cache(tcfg, 1, MAX_SEQ, base=MAX_PROMPT, device='cpu')
+    alone, _ = tinf.decode_step(tparams, empty, toks[1:2], tcfg,
+                                attn_impl=impl, page=PAGE)
+    assert torch.isfinite(runs[1]).all()
+    assert torch.equal(runs[0], runs[1])
+    np.testing.assert_allclose(runs[1][1].numpy(), alone[0].numpy(),
+                               atol=ATOL_LOGITS, rtol=0)
+
+
+def test_a_row_past_its_decode_columns_stays_in_its_own_row(models):
+    """A row that decodes past every decode column (a chunk that runs
+    beyond its max_new) is held at the cache's last column: its count
+    stops at the capacity, nothing lands past ``max_seq``, the columns
+    its kept tokens read keep their K/V, and the other row (idle, its
+    count at 0) is untouched but for its own frontier column."""
+    _, _, tcfg, tparams = models
+    cap = MAX_SEQ - MAX_PROMPT
+    cache = tinf.make_cache(tcfg, 2, MAX_SEQ, base=MAX_PROMPT, device='cpu')
+    _prefill_rows(tparams, tcfg, cache, [[1, 2, 3], [4, 5]])
+    act = torch.tensor([True, False])
+    tok = torch.tensor([7, 8], dtype=torch.int32)
+    for _ in range(cap - 1):
+        tinf.decode_step(tparams, cache, tok, tcfg, active=act, page=PAGE)
+    kept = cache['k'][:, 0, :MAX_SEQ - 1].clone()
+    other = cache['k'][:, 1].clone()
+    for _ in range(5):
+        tinf.decode_step(tparams, cache, tok, tcfg, active=act, page=PAGE)
+    assert cache['steps'].tolist() == [cap, 0]
+    assert torch.equal(cache['k'][:, 0, :MAX_SEQ - 1], kept)
+    assert cache['dmask'][0, MAX_PROMPT:].all()
+    changed = (cache['k'][:, 1] != other).any(dim=(0, 2, 3))
+    assert changed.nonzero().flatten().tolist() in ([], [MAX_PROMPT])
+    assert not cache['dmask'][1, MAX_PROMPT:].any()
 
 
 def test_sample_greedy_top_k_ties_and_temperature():
@@ -275,7 +417,7 @@ def test_prefill_matches_jax(models, quant):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                atol=ATOL_LOGITS, rtol=0)
     _assert_caches_equal(jc, tc)
-    assert tc['base'] == 12 and tc['steps'] == 0
+    assert tc['base'] == 12 and tc['steps'].tolist() == [0] * B
 
 
 def test_generate_matches_jax(models):

@@ -14,7 +14,8 @@ and S - C, GQA 1, 4 and 8) and K3 (spec-decode verify) at the 8B verify
 shapes and its edges (72 and 136 query rows per kv head, split edges),
 NaN planted wherever a kernel may not read; K1's and K3's bf16 bits
 unchanged when a row's live keys move to other cache columns (their
-tiles are cut from the live keys); an f32 engine with a 72-row
+tiles are cut from the live keys), and K3's bits the same with each row
+at its own segment start as at one shared start; an f32 engine with a 72-row
 verify segment against spec-off; K4 (flash forward: o and lse) and
 K5a/K5b (flash dQ and dK/dV) causal and not, with Sq < Sk, a ragged S
 and every head_dim they take, on both routes (f32: CUDA cores; bf16:
@@ -228,6 +229,42 @@ def test_verify_bits_follow_the_live_keys_alone(cuda, dtype):
     assert torch.isfinite(outs[0].float()).all()
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+def test_verify_per_row_segment_starts_equal_a_shared_start(cuda, dtype):
+    """K3 takes each row's own segment start ([B] int32 on the device,
+    read per row): rows whose decode keys and segments sit at their own
+    frontiers give the bits of the same keys and segments placed at one
+    shared start, on the bf16 split route and on the f32 route, and the
+    plain version agrees within the bar."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    b, vq, h, n_kv, hd, s, n_cols = 4, 5, 32, 8, 128, 1024, 768
+    prompts, live = [300, 410, 450, 512], 560
+    qdt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    q = torch.randn((b, vq, h, hd), generator=gen, device=cuda).to(qdt)
+    keys = [torch.randn((b, live, n_kv, hd), generator=gen,
+                        device=cuda).to(qdt) * 3
+            for _ in range(2)]
+    cols = torch.arange(s, device=cuda)[None, :]
+    outs = []
+    for segs in ([600] * b, [560, 640, 600, 700]):
+        # Each row's decode keys run up to its own segment, which holds
+        # its last vq keys (dmask-false there).
+        starts = [g - (live - p - vq) for g, p in zip(segs, prompts)]
+        kc, vc, valid, _, _, _ = _placed(cuda, keys + [None, None],
+                                         prompts, starts, s)
+        seg = torch.tensor(segs, dtype=torch.int32, device=cuda)
+        valid &= cols < seg[:, None]
+        got = tfa.verify_attention(q, kc, vc, valid, seg, n_cols=n_cols)
+        want = tfa.verify_attention_reference(
+            q, kc[:, :n_cols], vc[:, :n_cols], valid[:, :n_cols], seg)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        _assert_within_bar(got, want, f32=dtype == 'f32')
+        outs.append(got)
+    assert torch.equal(outs[1], outs[0])
 
 
 @pytest.mark.gpu

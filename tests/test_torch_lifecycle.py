@@ -240,8 +240,12 @@ def test_deadline_expiry_mid_decode_and_queued(models, monkeypatch):
         results.update(_drain(eng))
         views.append(_view(results))
     assert views[1] == views[0]
-    got = _counters(tmetrics)
-    assert got == _counters(jmetrics)
+    got, want = _counters(tmetrics), _counters(jmetrics)
+    # The JAX engine rebuilds its shared decode region once ('slow' and
+    # 'hold' use it up); the port's slots own their decode columns, so
+    # it never rebuilds.
+    assert want.pop('skytpu_engine_cache_resets_total') == 1
+    assert got == want
     assert got['skytpu_engine_cancels_total{reason="deadline"}'] == 2
     assert got['skytpu_engine_cancels_total{reason="api"}'] == 1
     assert lifecycle.TERMINAL_STATES == ('finished', 'cancelled', 'expired')

@@ -10,12 +10,13 @@ prompts span several pages:
   release) leaves the directory, the stats, the /health digest and the
   pool bits equal to a JAX pool's after every step;
 - ``copy_into`` marks exactly [0, cached) readable, in place (every
-  ``data_ptr()`` kept, ``steps`` untouched), as JAX's does;
+  ``data_ptr()`` kept), as JAX's does, and sets the slot's own decode
+  column count back to 0 (the other rows keep theirs);
 - the engine with the cache on gives the JAX engine's greedy tokens and
   the cache-off engine's, with the reference's reuse (24/0/8/16/16),
   hits and tokens saved; COW isolation, slot recycling, a cancel
-  mid-prefill, suffix-only admission charging and its identity memo,
-  int8 KV and speculation with the cache on;
+  mid-prefill, suffix-only admission charging, int8 KV and speculation
+  with the cache on;
 - SKKV1: bf16, int8 and f32 pages encode to the JAX pool's bytes, each
   side decodes the other's, imports round-trip bitwise, and a JAX
   engine's pages served through ``queue_kv_import`` give hits.
@@ -199,7 +200,8 @@ def test_copy_into_fixes_the_mask_in_place_like_jax(models, kv_quant):
     """The counterpart of test_copy_into_mask_fix_clears_previous_
     occupant: the row reads exactly [0, cached), its pages hold the
     pool's bits, the other row is untouched — equal to JAX's copy_into
-    — and every cache tensor keeps its address, ``steps`` its value."""
+    — and every cache tensor keeps its address; the new occupant's own
+    decode column count starts at 0, the other row keeps its count."""
     jcfg, _, tcfg, _ = models
     s_max, batch = 64, 2
     cache = tinf.make_cache(tcfg, batch, s_max, base=32, kv_quant=kv_quant,
@@ -233,7 +235,7 @@ def test_copy_into_fixes_the_mask_in_place_like_jax(models, kv_quant):
     assert out is cache
     assert {f: t.data_ptr() for f, t in cache.items()
             if isinstance(t, torch.Tensor)} == ptrs
-    assert int(cache['steps']) == 7
+    assert cache['steps'].tolist() == [0, 7]
     assert (cache['dmask'][0].numpy() == (np.arange(s_max) < 16)).all()
     assert int(cache['length'][0]) == 16
     assert torch.equal(cache['dmask'][1], before['dmask'][1])
@@ -389,38 +391,45 @@ def test_cancel_mid_prefill_publishes_finished_pages_and_unpins(models):
     assert eng.prefix.tokens_saved - saved == done * PAGE
 
 
-def test_admission_charges_the_uncached_suffix_with_an_identity_memo(
-        models):
-    """The counterparts of test_admission_charges_uncached_suffix_only
-    and test_fits_memo_is_request_identity_keyed: next to a running
-    decode, a request that does not fit without the cache fits with it
-    (its cached prefix burns no prefill ticks), and the memo keys on
-    the Request object, not its id."""
+def test_admission_charges_the_uncached_suffix(models):
+    """The counterpart of test_admission_charges_uncached_suffix_only:
+    with the cache on, the admission charge (the QoS currency, and the
+    worst case ``past_frontier`` weighs) counts only the uncached
+    suffix, and a lookup follows the prompt, not the request id. Each
+    slot owns its decode columns, so next to a running decode both
+    engines admit the request whose full charge (24 tick-tokens) a
+    shared 16-column region could not hold, and serve it the oracle's
+    tokens."""
     kw = dict(batch_size=2, max_prompt=32, max_seq=48, decode_chunk=4,
               prefill_chunk=8, prefill_budget=16)
     on, off = _engine(models, **kw), _engine(models, prefix_cache=False,
                                              **kw)
     big = _prompt(32, 41)
     _run(on, 'pub', big, 2)
-    on.reset()                     # full decode region back, pool kept
+    on.reset()                     # every count back at 0, pool kept
     assert on.prefix.stats()['occupied'] == 4
     for eng in (on, off):
         eng.submit(tse.Request('occ', _prompt(4, 42), max_new=6))
         eng.step()
     req = tse.Request('tight', list(big), max_new=8)
-    # Full charge: 8 + ceil(32/8)*4 = 24 > 16 remaining. Suffix charge
-    # after the 24-token reuse: 8 + ceil(8/8)*4 = 12 <= 16.
+    # Full charge: 8 + ceil(32/8)*4 = 24. Suffix charge after the
+    # 24-token reuse: 8 + ceil(8/8)*4 = 12.
     assert on._suffix_len(32, big) == 8 and off._suffix_len(32, big) == 32
-    assert not off._fits(req)
-    assert on._fits(req)
-    assert on._fits_memo == (req, on.prefix.version, 8)
-    # Same id, an uncached prompt: the memo must not serve the cached
-    # request's suffix.
-    assert not on._fits(tse.Request('tight', _prompt(32, 47), max_new=8))
-    assert on._fits_memo[2] == 32
+    assert on._admission_charge(req) == 12
+    assert off._admission_charge(req) == 24
+    # Same id, an uncached prompt: the full charge.
+    assert on._admission_charge(
+        tse.Request('tight', _prompt(32, 47), max_new=8)) == 24
+    got = {}
     for eng in (on, off):
+        eng.submit(tse.Request('tight', list(big), max_new=8))
+        eng.step()
+        assert any(st is not None and st.request_id == 'tight'
+                   for st in eng.slots)
         while eng.queue or eng.num_active() or eng.has_pending:
             eng.step()
+        got[eng is on] = eng.drain_results()['tight'].tokens
+    assert got[True] == got[False] == _oracle(models, big, 8)
 
 
 def test_cache_off_by_default_and_unchanged(models, monkeypatch):

@@ -200,18 +200,23 @@ class Side:
         return out
 
 
-def _sides(models, monkeypatch, warm=False, **kw):
+def _sides(models, monkeypatch, warm=False, jax_max_seq=None, **kw):
+    """The JAX and the port engine on the same settings. ``jax_max_seq``
+    gives the JAX engine a longer cache: a decode region its slots share
+    that never binds, which is what the port's admission (each slot owns
+    its decode columns) equals."""
     jcfg, jparams, tcfg, tparams = models
     base = dict(batch_size=1, max_prompt=32, max_seq=96, decode_chunk=4,
                 prefill_chunk=16, page=8)
     base.update(kw)
     out = []
     for name, mod, params, cfg, extra in (
-            ('jax', jse, jparams, jcfg, {}),
+            ('jax', jse, jparams, jcfg,
+             {} if jax_max_seq is None else {'max_seq': jax_max_seq}),
             ('port', tse, tparams, tcfg, {'device': 'cpu'})):
         clock = FakeClock()
         monkeypatch.setattr(mod, 'time', clock)
-        eng = mod.ServingEngine(params, cfg, **base, **extra)
+        eng = mod.ServingEngine(params, cfg, **{**base, **extra})
         if warm:
             eng.warmup()
         out.append(Side(name, mod, eng, clock))
@@ -459,8 +464,11 @@ def _replay(side, trace, tick=0.02):
 def test_burst_isolation_ab_engine_level(models, monkeypatch):
     """The seeded victim trace under a 10x bulk flood, QoS on and under
     the SKYTPU_QOS_DISABLE FIFO control, on both engines: each arm's
-    admission order, Results and counters equal the JAX engine's, and
-    QoS keeps the victim's mean TTFT a multiple below the FIFO arm's."""
+    admission order, Results and counters equal the JAX engine's with a
+    decode region that never binds (the port's slots own their decode
+    columns; a shared 96-column region would hold admissions back that
+    the port makes), and QoS keeps the victim's mean TTFT a multiple
+    below the FIFO arm's."""
     spec = loadgen.WorkloadSpec(
         seed=13, arrival='uniform', vocab_size=256,
         prompt_median=16, prompt_sigma=0.0, prompt_min=4,
@@ -485,7 +493,7 @@ def test_burst_isolation_ab_engine_level(models, monkeypatch):
         for k, v in env.items():
             monkeypatch.setenv(k, v)
         j, t = _sides(models, monkeypatch, batch_size=2, max_prompt=64,
-                      max_seq=160)
+                      max_seq=160, jax_max_seq=64 + 2048)
         (jres, jttft), (tres, tttft) = _replay(j, trace), _replay(t, trace)
         _assert_same(j, t, jres, tres)
         assert tttft == jttft

@@ -3,9 +3,12 @@
 at ``tiny()`` in f32: on the same requests its greedy tokens EQUAL the
 JAX ``ServingEngine``'s and JAX ``reference_generate``'s — through slot
 recycling, more requests than slots, mixed prompt lengths across chunk
-edges, int8 KV, capacity resets and EOS. Plus the engine's own rules:
-request validation and duplicate ids, cancellation, per-request
-temperature, run scoping and the streaming hook."""
+edges, int8 KV, a long answer beside short ones (each slot owns its
+decode columns, so the port admits where the JAX engine's shared region
+waits, and writes nothing past max_seq at max_new = the capacity) and
+EOS. Plus the engine's own rules: request validation and duplicate ids,
+cancellation, per-request temperature, run scoping and the streaming
+hook."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,12 +108,40 @@ def test_int8_kv_engine_matches_jax(models):
 
 
 def test_capacity_reset(models):
-    """16 decode slots for 6 requests of 8 tokens: the engine drains,
-    starts a fresh cache, and still serves everything exactly."""
+    """16 decode columns a slot for 6 requests of 8 tokens (the JAX
+    engine drains its shared region and starts a fresh cache): every
+    slot is recycled at its own columns, and everything is served
+    exactly."""
     prompts = _prompts(6, [6], seed=4)
     got, _ = _serve_both(models, prompts, 8, batch_size=2, max_prompt=32,
                          max_seq=48)
     assert got == _reference(models, prompts, 8)
+
+
+def test_long_answer_beside_short_ones_matches_jax(models):
+    """One request takes all 16 decode columns (max_new = the capacity)
+    while four short ones pass through the other two slots: the port
+    admits each short one as a slot frees, so all finish before the
+    long one (a shared region would have held them), every request's
+    greedy tokens equal the JAX engine's and reference_generate's, and
+    no count passes the cache's decode columns."""
+    prompts = _prompts(5, [7, 5, 9, 6, 4], seed=9)
+    new = (lambda i: 16 if i == 0 else 3)
+    jcfg, jparams, tcfg, tparams = models
+    kw = dict(batch_size=3, max_prompt=32, max_seq=48, decode_chunk=2)
+    jres = jse.ServingEngine(jparams, jcfg, page=PAGE, **kw).run(
+        [jse.Request(i, p, max_new=new(i)) for i, p in prompts.items()])
+    teng = tse.ServingEngine(tparams, tcfg, page=PAGE, device='cpu', **kw)
+    assert teng.decode_capacity() == 16
+    done = []
+    tres = teng.run([tse.Request(i, p, max_new=new(i))
+                     for i, p in prompts.items()],
+                    on_result=lambda r: done.append(r.request_id))
+    want = _reference(models, prompts, 16)
+    for i in prompts:
+        assert tres[i].tokens == jres[i].tokens == want[i][:new(i)], i
+    assert done[-1] == 0, done
+    assert 0 < int(teng.cache['steps'].max()) <= 16
 
 
 def test_eos_finishes_early_like_jax(models):

@@ -186,6 +186,7 @@ def _both_verify(models, jc, tc, first, drafts, slen, active=None,
     jcfg, jparams, tcfg, tparams = models
     b = drafts.shape[0]
     jact = None if active is None else jnp.asarray(active)
+    counts0 = tc['steps'].numpy().copy()
     je, jn, jt, jc = jinf.verify_step(
         jparams, jc, jnp.asarray(first), jnp.asarray(drafts),
         jnp.asarray(slen), jcfg, jax.random.PRNGKey(2),
@@ -207,19 +208,30 @@ def _both_verify(models, jc, tc, first, drafts, slen, active=None,
                                   np.asarray(jc['dmask']))
     np.testing.assert_array_equal(tc['length'].numpy(),
                                   np.asarray(jc['length']))
-    assert tc['steps'] == int(jc['steps'])
+    # Each active row's own count moves with JAX's shared steps (every
+    # row starts at JAX's count here); an idle row keeps its own.
+    act = np.ones((b,), bool) if active is None else np.asarray(active)
+    assert (counts0 == int(jc['steps']) - drafts.shape[1] - 1).all()
+    np.testing.assert_array_equal(
+        tc['steps'].numpy(), np.where(act, int(jc['steps']), counts0))
+    # An idle row reads no cache column in the port, so the K/V its
+    # segment writes (dmask-false, never read) differ from JAX's past
+    # the first layer: it is compared on the columns it may read.
+    dmask = np.asarray(jc['dmask'])
+    keep = act[:, None] | dmask
     for f in ('k', 'v', 'k_scale', 'v_scale'):
         if f not in tc:
             continue
-        t, j = tc[f], np.asarray(jc[f])
+        t, j = tc[f], np.asarray(jc[f])[:, keep]
         if t.dtype == torch.int8:
-            np.testing.assert_array_equal(t.numpy(), j, err_msg=f)
+            np.testing.assert_array_equal(t.numpy()[:, keep], j, err_msg=f)
         elif t.dtype == torch.bfloat16 and f.endswith('scale'):
-            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
-                                          j.view(np.int16), err_msg=f)
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy()[:, keep], j.view(np.int16),
+                err_msg=f)
         else:
             atol = ATOL_BF16_KV if t.dtype == torch.bfloat16 else ATOL
-            np.testing.assert_allclose(t.float().numpy(),
+            np.testing.assert_allclose(t.float().numpy()[:, keep],
                                        j.astype(np.float32), atol=atol,
                                        rtol=0, err_msg=f)
     return tn_np, tt.numpy(), te.numpy(), tc

@@ -7,8 +7,9 @@ port, so it also runs where JAX is not installed:
 
 - Graphed and eager engines (``_graphs = None`` before ``warmup()``)
   give equal greedy tokens in f32: speculation off and on (oracle-free
-  prompt lookup and garbage drafts), an int8 KV cache, and a capacity
-  reset reached on the card (the graphs stay valid across it); warmup
+  prompt lookup and garbage drafts), an int8 KV cache, and 16 decode
+  columns a slot, which rows run past and recycle on the card (the
+  graphs stay valid throughout); warmup
   captures exactly the enumerated keys and a ragged run captures
   nothing more.
 - One captured K3 launch, replayed at two segment starts written into
@@ -93,7 +94,7 @@ def test_graphed_engine_equals_eager(cuda, mode):
     elif mode == 'int8':
         kw = dict(kv_quant=True)
     elif mode == 'capacity':
-        kw = dict(max_seq=48)              # 16 decode slots: resets
+        kw = dict(max_seq=48)   # 16 decode columns a slot: rows past them
     eager, want = _serve(cfg, params, cuda, False, lookup, **kw)
     assert eager.graph_captures == 0
     _build.reset_launches()

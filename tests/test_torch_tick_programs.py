@@ -1,26 +1,32 @@
 """The engine tick as one program, on the CPU (the eager path) against
 the JAX package at ``tiny()`` in f32.
 
-- The tick primitives on the cache's device ``steps`` scalar:
+- The tick primitives on the cache's device ``steps`` (each row's own
+  decode column count):
   ``prefill_chunk`` on device metadata (dead rows repeating a live
   row's slot) leaves JAX's cache — int8 payloads and scales bitwise,
   f32 K/V within 1e-5, dmask and lengths equal — and its live rows'
   logits within 1e-4; the dead rows are inert bit for bit (the same
   cache as without them); ``decode_step`` and ``verify_step`` follow on
-  the same cache as JAX's (tokens exact).
+  the same cache as JAX's (the active rows' logits and tokens; an idle
+  row keeps its count, reads no cache column, and is compared on the
+  columns it may read).
 - No host read in a tick body: the decode, mixed (with decode, prefill
   only, with verify) and verify bodies run with ``Tensor.item``,
   ``tolist``, ``numpy``, ``__bool__``, ``__int__`` and ``__index__``
   patched to raise; a ``tiny_moe`` model's too (dropless and capacity
   dispatch, dense and int8 expert banks).
-- The key set: the port enumerates as many tick programs of each kind
-  as the JAX engine compiles in ``warmup()`` (``_decode``, ``_mixed``,
-  ``_spec`` cache sizes), spec off and on, and every key a ragged eager
-  run dispatches lies in that set (the counterparts of
+- The key set: the JAX engine's ``warmup()`` compiles (``_decode``,
+  ``_mixed``, ``_spec`` cache sizes) less its tail chunks, which only a
+  shared decode region needs: the port's decode ticks all run the main
+  chunk, over every page count a row's own columns reach; its verify
+  programs are JAX's, spec off and on; every key a ragged eager run
+  dispatches lies in that set (the counterparts of
   ``tests/unit_tests/test_chunked_prefill.py:300-330`` and
   ``tests/unit_tests/test_spec_decode.py:428-456``).
-- ``reset()`` and the capacity reset restore the cache in place: every
-  tensor keeps its ``data_ptr()`` and equals a fresh ``make_cache``.
+- ``reset()`` restores the cache in place (every tensor keeps its
+  ``data_ptr()`` and equals a fresh ``make_cache``); a run that
+  recycles every slot rebuilds nothing.
 """
 import contextlib
 import functools
@@ -34,6 +40,7 @@ import torch
 from skypilot_tpu import models as jmodels
 from skypilot_tpu.models import inference as jinf
 from skypilot_tpu.models import serving_engine as jse
+from skypilot_tpu.ops import decode_attention as jdec
 from skypilot_tpu_torch import convert
 from skypilot_tpu_torch.models import inference as tinf
 from skypilot_tpu_torch.models import llama as tllama
@@ -71,25 +78,35 @@ def _jax_cache(cfg, quant):
     return cache
 
 
-def _assert_like_jax(jc, tc):
+def _assert_like_jax(jc, tc, counts=None):
+    """The port's cache equals JAX's; ``counts`` is each row's expected
+    own decode column count (default: JAX's shared ``steps`` for every
+    row). A row that sat out steps wrote its idle K/V at its own
+    frontier, where JAX wrote them at the shared column: it is compared
+    on its prompt region and the columns it may read."""
+    steps = int(jc['steps'])
+    counts = np.full((B,), steps) if counts is None else np.asarray(counts)
+    dmask = np.asarray(jc['dmask'])
+    cols = np.arange(MAX_SEQ)[None, :]
+    keep = (counts == steps)[:, None] | dmask | (cols < MAX_PROMPT)
     for f in ('k', 'v', 'k_scale', 'v_scale'):
         if f not in jc:
             continue
-        j, t = np.asarray(jc[f]), tc[f]
+        j, t = np.asarray(jc[f])[:, keep], tc[f]
         if t.dtype == torch.bfloat16:
-            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
-                                          j.view(np.int16), err_msg=f)
+            np.testing.assert_array_equal(
+                t.view(torch.int16).numpy()[:, keep], j.view(np.int16),
+                err_msg=f)
         elif t.dtype == torch.int8:
-            np.testing.assert_array_equal(t.numpy(), j, err_msg=f)
+            np.testing.assert_array_equal(t.numpy()[:, keep], j, err_msg=f)
         else:
-            np.testing.assert_allclose(t.numpy(), j, atol=ATOL_CACHE,
-                                       rtol=0, err_msg=f)
-    np.testing.assert_array_equal(tc['dmask'].numpy(),
-                                  np.asarray(jc['dmask']))
+            np.testing.assert_allclose(t.numpy()[:, keep], j,
+                                       atol=ATOL_CACHE, rtol=0, err_msg=f)
+    np.testing.assert_array_equal(tc['dmask'].numpy(), dmask)
     np.testing.assert_array_equal(tc['length'].numpy(),
                                   np.asarray(jc['length']))
-    assert tc['steps'].dim() == 0 and tc['steps'].dtype == torch.int32
-    assert int(tc['steps']) == int(jc['steps'])
+    assert tc['steps'].shape == (B,) and tc['steps'].dtype == torch.int32
+    np.testing.assert_array_equal(tc['steps'].numpy(), counts)
 
 
 def _assert_bitwise(a, b):
@@ -175,11 +192,14 @@ def test_device_metadata_dead_rows_and_device_steps_match_jax(models,
         tlg, tc = tinf.decode_step(tparams, tc, torch.from_numpy(tok), tcfg,
                                    active=torch.from_numpy(active),
                                    num_pages=5, page=PAGE)
-        np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg),
+        # An idle row's logits (which no caller keeps) attend to its
+        # own K/V alone in the port: the active rows' are compared.
+        np.testing.assert_allclose(tlg.numpy()[active],
+                                   np.asarray(jlg)[active],
                                    atol=ATOL_LOGITS, rtol=0)
         tok = np.asarray(jnp.argmax(jlg, -1)).astype(np.int32)
-        assert (tlg.argmax(-1).numpy() == tok).all()
-    _assert_like_jax(jc, tc)
+        assert (tlg.argmax(-1).numpy()[active] == tok[active]).all()
+    _assert_like_jax(jc, tc, np.where(active, 2, 0))
     drafts = np.asarray([[3, 4], [tok[1], 7], [1, 1]], np.int32)
     slen = np.asarray([2, 1, 2], np.int32)
     je, jn, jt, jc = jinf.verify_step(
@@ -197,7 +217,7 @@ def test_device_metadata_dead_rows_and_device_steps_match_jax(models,
         n = int(jn[row])
         np.testing.assert_array_equal(te.numpy()[row, :n],
                                       np.asarray(je)[row, :n])
-    _assert_like_jax(jc, tc)
+    _assert_like_jax(jc, tc, np.where(active, 2 + drafts.shape[1] + 1, 0))
     assert {f: t.data_ptr() for f, t in tc.items()
             if isinstance(t, torch.Tensor)} == ptrs
 
@@ -256,8 +276,8 @@ def test_tick_bodies_read_nothing_on_the_host(models, kv_quant):
         with _no_host_reads():
             out = eng._tick_body(key)
         assert out.dtype == torch.int32 and out.dim() == 1, key
-    # The patch is gone again.
-    assert int(eng.cache['steps']) > 0
+    # The patch is gone again; the active rows moved their counts.
+    assert int(eng.cache['steps'].max()) > 0
 
 
 @pytest.mark.parametrize('dispatch', ['dropless', 'capacity'])
@@ -342,7 +362,17 @@ def _check_key_set(models, spec, **extra):
     eng = _engine(models, **kw)
     keys = eng._tick_keys()
     got = {kind: sum(k[0] == kind for k in keys) for kind in want}
-    assert got == want
+    # The main chunk over every count a row's own columns reach, in the
+    # reference's page policy; JAX adds its tail chunks to these.
+    chunk = ENGINE_KW['decode_chunk']
+    main = {jdec.num_pages_for(eng.max_prompt + c + chunk, PAGE,
+                               eng._total_pages, base_pages=eng._base_pages)
+            for c in range(eng.decode_capacity() + 1)}
+    assert {k[1:] for k in keys if k[0] == 'decode'} == {
+        (chunk, p) for p in main}
+    assert got['decode'] == len(main) < want['decode']
+    assert got['mixed'] - got['decode'] == want['mixed'] - want['decode']
+    assert got['verify'] == want['verify']
     assert len(set(keys)) == len(keys)
     # A ragged eager run dispatches only keys of the set.
     seen = _recording(eng)
@@ -365,6 +395,27 @@ def _check_key_set(models, spec, **extra):
     return keys
 
 
+def test_chat_geometry_captures_nine_tick_programs():
+    """At the benchmark's chat engines' geometry (max_prompt 3072,
+    max_seq 4096, page 128, decode chunk 8, no speculation) the key set
+    is the main chunk over four page counts (25, 26, 28 and 32 pages),
+    as a decode and as a mixed tick, plus the prefill-only tick: 9
+    programs to capture, where a shared region's tail chunks (4, 2 and
+    1 steps near its end) made 15."""
+    cfg = tllama.LlamaConfig.tiny()
+    params = tllama.init_params(cfg, 0, device='cpu')
+    eng = tse.ServingEngine(params, cfg, batch_size=1, max_prompt=3072,
+                            max_seq=4096, decode_chunk=8, page=128,
+                            prefill_chunk=512, prefill_budget=1024,
+                            device='cpu')
+    keys = eng._tick_keys()
+    pages = [25, 26, 28, 32]
+    assert keys == ([('decode', 8, p) for p in pages] +
+                    [('mixed', 0, None, 0)] +
+                    [('mixed', 8, p, 0) for p in pages])
+    assert len(keys) == 9 < 15
+
+
 @pytest.mark.parametrize('kv_quant', [False, True], ids=['f32kv', 'int8kv'])
 def test_resets_restore_the_cache_in_place(models, kv_quant, monkeypatch):
     eng = _engine(models, kv_quant=kv_quant, max_seq=32)
@@ -384,12 +435,14 @@ def test_resets_restore_the_cache_in_place(models, kv_quant, monkeypatch):
         restored.append(1)
         return out
     monkeypatch.setattr(tinf, 'reset_cache', checked)
-    # 16 decode slots for 6 requests of 6 tokens: capacity resets.
+    # 16 decode columns a slot for 6 requests of 6 tokens: each slot is
+    # recycled in place (its occupant's count starts at 0), so a run
+    # rebuilds nothing; reset() restores the cache in place.
     rng = np.random.default_rng(5)
     res = eng.run([tse.Request(i, rng.integers(0, 256, 6).tolist(),
                                max_new=6) for i in range(6)])
     assert all(len(r.tokens) == 6 for r in res.values())
-    assert restored, 'no capacity reset ran'
-    n_capacity = len(restored)
+    assert not restored, 'a run rebuilt the cache'
+    assert 0 < int(eng.cache['steps'].max()) <= 32 - eng.max_prompt
     eng.reset()
-    assert len(restored) == n_capacity + 1
+    assert len(restored) == 1

@@ -313,14 +313,18 @@ def test_split_and_merge_arithmetic_matches_the_reference(split_tiles):
 def test_split_geometry():
     """A block's run of live-key tiles comes from the launch's fixed
     shape (slots, the cache's tiles, the SMs): a full cache's grid within
-    four blocks per SM, at most one split per tile and 64 in all; the
-    wrapper launches enough runs to cover the dispatched tiles; the
-    ranges are the runs in order, cut at the live tiles, empty past
-    them; K3's blocks hold one or two 64-row tiles."""
+    four blocks per SM, runs of at most 16 tiles, at most one split per
+    tile and 64 in all; the wrapper launches enough runs to cover the
+    dispatched tiles; the ranges are the runs in order, cut at the live
+    tiles, empty past them; K3's blocks hold one or two 64-row tiles."""
     assert split_kv.tiles_per_split(64, 16, 132) == 2
     assert split_kv.tiles_per_split(64, 12, 132) == 2
     assert split_kv.tiles_per_split(64, 2, 132) == 1
-    assert split_kv.tiles_per_split(512, 100, 132) == 100
+    assert split_kv.tiles_per_split(512, 100, 132) == 15
+    # The chat engines' K1 (Mistral 64 x 8, Mixtral 32 x 8 slots, 4,096
+    # columns): four runs of 16 tiles a row.
+    assert split_kv.tiles_per_split(512, 64, 132) == 16
+    assert split_kv.tiles_per_split(256, 64, 132) == 16
     assert split_kv.tiles_per_split(8, 0, 132) == 1
     assert split_kv.tiles_per_split(2, 1000, 132) == 16
     assert split_kv.split_count(10, 4) == 3
